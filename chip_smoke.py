@@ -1,0 +1,285 @@
+"""Drive the PyTorch/CUDA port's main path on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Run from the repository root, on a machine with one CUDA card and nvcc.
+
+1. Build every CUDA kernel of the path from ``mindtheedge_tpu_torch/csrc``
+   (nvcc, sm_90a) into ``build/kernels/``.
+2. Hold the Sobel-5 + NMS kernel against its plain PyTorch version on the
+   card: uniform noise [4,384,1280], Gaussian-smoothed noise x4, odd shapes
+   and the exact-dyadic zero-gradient patch.  >= 99.99 % of pixels agree,
+   every pixel of the patch, and kept values are bit-equal.
+3. Run a small PackNet-SAN 1A (channels (16,)*6, 64x96, batch 2, LiDAR) on
+   the card and on the CPU with the same weights: all 4 scales at rtol 1e-4,
+   atol 1e-5, TF32 off.
+4. Serve full-width PackNet-SAN 1A (SLIM channels, 384x1280, batch 4, fp32,
+   95 %-sparse LiDAR) built by ``serve.build``: 2 warm-up requests (the
+   first one runs cuDNN's autotuner) and 8 timed ones through
+   ``serve.serve``, rgb and LiDAR perturbed on every request; the NMS
+   kernel must launch once per request.  Then time the kernel and its plain
+   version at [4,384,1280].
+
+Prints one line per phase, then the card's name and power limit, a JSON
+line of the kernels, and as its last line
+``{"ok": true, "device": {...}}``.  Any failure exits nonzero; without a CUDA
+device it exits nonzero and prints no result.
+"""
+
+import copy
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from mindtheedge_tpu_torch import serve
+from mindtheedge_tpu_torch.models.packnet import SLIM_CHANNELS
+from mindtheedge_tpu_torch.ops import edge_ops, wire
+from mindtheedge_tpu_torch.ops.cuda import build, nms_kernel
+from tests.test_torch_nms_kernel import dyadic_patch, gaussian_blur
+
+KERNELS = ('nms_kernel',)
+B, H, W = 4, 384, 1280
+WARMUP, REQUESTS = 2, 8
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
+FP32_FLOPS_PER_S = 67e12        # H100 SXM, fp32 outside the tensor cores
+NMS_FLOPS_PER_PX = 40           # separable Sobel-5 pair (32) + bucket tests
+
+
+def check(ok, what):
+    if not ok:
+        raise RuntimeError(f'chip_smoke: {what}')
+
+
+def event_ms(fn, iters):
+    """Mean device ms of ``fn(i)`` over ``iters`` back-to-back calls, by CUDA
+    events.  The stream first sleeps ~0.5 s so that the host has enqueued
+    every call before the first one runs: the events then see device time,
+    not the wrapper's launch overhead."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1_000_000_000)
+    start.record()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fn(i)
+    enqueue_s = time.perf_counter() - t0
+    end.record()
+    end.synchronize()
+    check(enqueue_s < 0.25, f'enqueueing {iters} calls took {enqueue_s:.3f} s')
+    return start.elapsed_time(end) / iters
+
+
+def compare_nms(x):
+    """Kernel vs plain version on one card tensor -> (mismatches, max |err|)."""
+    got = nms_kernel.non_max_suppression(x)
+    torch.cuda.synchronize()
+    want = edge_ops.non_max_suppression(x)
+    both = (got > 0) & (want > 0)
+    check(torch.equal(got[both], want[both]),
+          f'kept NMS values differ at {tuple(x.shape)}')
+    return (int((got != want).sum()), float((got - want).abs().max()))
+
+
+def phase_build():
+    t0 = time.perf_counter()
+    reports = build.build(*KERNELS)
+    secs = time.perf_counter() - t0
+    for name in KERNELS:
+        check(build.library_path(name).exists(), f'{name} did not build')
+    print(f'phase 1 build: {len(reports)} of {len(KERNELS)} kernel(s) '
+          f'compiled in {secs:.2f} s')
+    for name, report in reports.items():
+        for line in report.splitlines():
+            if 'registers' in line or 'spill' in line:
+                print(f'  {name}: {line.strip()}')
+
+
+def phase_kernel_vs_plain(dev):
+    rng = np.random.RandomState(0)
+    noise = rng.rand(B, H, W).astype(np.float32)
+    smooth = np.stack([gaussian_blur(n) * 4.0 for n in noise[:2]])
+    inputs = {'noise[4,384,1280]': noise, 'smooth[2,384,1280]': smooth,
+              'odd[3,37,53]': rng.rand(3, 37, 53).astype(np.float32),
+              'odd[1,5,7]': rng.rand(1, 5, 7).astype(np.float32),
+              'dyadic[9,9]': dyadic_patch()}
+    total_px = total_bad = 0
+    max_err = 0.0
+    for name, img in inputs.items():
+        bad, err = compare_nms(torch.from_numpy(img).to(dev))
+        check(bad <= 1e-4 * img.size, f'NMS {name}: {bad} mismatches')
+        if name.startswith('dyadic'):
+            check(bad == 0, f'NMS {name}: {bad} mismatches')
+        total_px, total_bad = total_px + img.size, total_bad + bad
+        max_err = max(max_err, err)
+        print(f'phase 2 nms kernel vs plain {name}: {bad} of {img.size} '
+              f'pixels differ, max |err| {err}')
+    return total_px, total_bad, max_err
+
+
+def phase_small_slice(dev):
+    cpu_model = serve.build((16,) * 6, device='cpu', seed=1)
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    rng = np.random.RandomState(1)
+    rgb_u8 = torch.from_numpy(rng.randint(0, 256, (2, 64, 96, 3)).astype(np.uint8))
+    lidar = rng.rand(2, 64, 96, 1).astype(np.float32) * 80.0
+    lidar[rng.rand(2, 64, 96, 1) < 0.95] = 0.0
+    lidar = torch.from_numpy(lidar)
+    rgb = rgb_u8.float() / 255.0
+    with torch.no_grad():
+        want = cpu_model(rgb, lidar)['inv_depths']
+        got = card_model(rgb.to(dev), lidar.to(dev))['inv_depths']
+    worst = 0.0
+    for scale, (g, w) in enumerate(zip(got, want)):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-5,
+                                   msg=lambda m: f'scale {scale}: {m}')
+        worst = max(worst, float((g.cpu() - w).abs().max()))
+    depth_c, edges_c = serve.serve(card_model, rgb_u8, lidar)
+    depth_h, edges_h = serve.serve(cpu_model, rgb_u8, lidar)
+    dq = (depth_c.cpu().to(torch.int64) - depth_h.to(torch.int64)).abs().max()
+    agree = (wire.unpack_edges(edges_c.cpu()) == wire.unpack_edges(edges_h)
+             ).float().mean().item()
+    check(int(dq) <= 1 and agree >= 0.99,
+          f'small serve card vs cpu: depth codes differ by {int(dq)}, '
+          f'edges agree on {agree:.5f}')
+    print(f'phase 3 small slice card vs cpu: 4 scales within rtol 1e-4 '
+          f'atol 1e-5 (max |err| {worst}); serve depth codes within '
+          f'{int(dq)}, edge bits agree on {agree:.6f}')
+
+
+def phase_serve(dev):
+    model = serve.build(SLIM_CHANNELS, device=dev, seed=0)
+    rng = np.random.RandomState(0)
+    rgb_base = rng.randint(0, 256, (B, H, W, 3)).astype(np.int64)
+    lidar_base = rng.rand(B, H, W, 1).astype(np.float32) * 80.0
+    lidar_base[rng.rand(B, H, W, 1) < 0.95] = 0.0
+    requests = [
+        (torch.from_numpy(((rgb_base + i) % 256).astype(np.uint8)).pin_memory(),
+         torch.from_numpy(lidar_base + np.float32(i * 1e-3) * (lidar_base > 0)
+                          ).pin_memory())
+        for i in range(WARMUP + REQUESTS)]
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.reset_peak_memory_stats()
+    nms_kernel.launches = 0
+    device_ms, wall_ms = [], []
+    for i, (rgb_u8, lidar) in enumerate(requests):
+        if i == WARMUP:     # the warm-up peak holds cuDNN's autotuning
+            tuning_peak = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        start.record()
+        depth_wire, edges_wire = serve.serve(model, rgb_u8, lidar, wire='u16')
+        depth_host, edges_host = depth_wire.cpu(), edges_wire.cpu()
+        end.record()
+        end.synchronize()
+        if i >= WARMUP:
+            device_ms.append(start.elapsed_time(end))
+            wall_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = nms_kernel.launches
+    peak = torch.cuda.max_memory_allocated()
+    check(launches == WARMUP + REQUESTS,
+          f'NMS kernel launched {launches} times in {WARMUP + REQUESTS} requests')
+
+    check(depth_host.dtype == torch.uint16 and depth_host.shape == (B, H, W),
+          f'depth wire {depth_host.dtype} {tuple(depth_host.shape)}')
+    check(edges_host.dtype == torch.uint8 and edges_host.shape == (B, H, W // 8),
+          f'edge wire {edges_host.dtype} {tuple(edges_host.shape)}')
+    depth = wire.decode_depth_u16(depth_host)
+    edge_share = wire.unpack_edges(edges_host).float().mean().item()
+    check(bool(torch.isfinite(depth).all()) and float(depth.min()) >= 0.5,
+          f'depth out of range [{float(depth.min())}, {float(depth.max())}]')
+    check(edge_share < 0.5, f'edge share {edge_share}')
+    mean_ms = float(np.mean(device_ms))
+    print(f'phase 4 serve 384x1280 b{B} fp32: {REQUESTS} requests after '
+          f'{WARMUP} warm-up, {mean_ms:.3f} ms/batch on the device '
+          f'(min {min(device_ms):.3f}, max {max(device_ms):.3f}; host wall '
+          f'{float(np.mean(wall_ms)):.3f}), {B * 1e3 / mean_ms:.2f} img/s, '
+          f'peak {peak / 2**30:.3f} GiB (warm-up with cuDNN autotuning '
+          f'{tuning_peak / 2**30:.3f} GiB), nms launches {launches} '
+          f'({launches / (WARMUP + REQUESTS):g} per request), depth '
+          f'[{float(depth.min()):.3f}, {float(depth.max()):.3f}] m, '
+          f'edge share {edge_share:.4f}')
+
+    # the kernel on the probability map the main path gave it
+    rgb_u8, lidar = requests[-1]
+    with torch.no_grad():
+        inv = model(rgb_u8.to(dev).float() / 255.0, lidar.to(dev))[
+            'inv_depths'][0][..., 0]
+    prob = torch.clamp(inv / 2.0, 0.0, 1.0)
+    bad, err = compare_nms(prob)
+    check(bad <= 1e-4 * prob.numel(), f'NMS on the served map: {bad} mismatches')
+    kept = (edge_ops.non_max_suppression(prob) > 0).float().mean().item()
+    check(0.0 < kept < 1.0, f'NMS kept {kept} of the served map')
+    print(f'phase 4 nms kernel vs plain on the served map: {bad} of '
+          f'{prob.numel()} pixels differ, max |err| {err}; NMS keeps {kept:.4f}')
+    return launches, prob.numel(), bad, err
+
+
+def time_nms(dev):
+    """Kernel and plain version at [4,384,1280]; 8 inputs in turn, 63 MB,
+    more than the 50 MB L2, so each call reads its input from HBM."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    xs = [torch.rand(B, H, W, device=dev, generator=gen) for _ in range(8)]
+    for x in xs:
+        nms_kernel.non_max_suppression(x)
+        edge_ops.non_max_suppression(x)
+    kernel_ms = event_ms(lambda i: nms_kernel.non_max_suppression(xs[i % 8]), 400)
+    plain_ms = event_ms(lambda i: edge_ops.non_max_suppression(xs[i % 8]), 4)
+    numel = B * H * W
+    bytes_ms = 2 * 4 * numel / HBM_BYTES_PER_S * 1e3
+    flops_ms = NMS_FLOPS_PER_PX * numel / FP32_FLOPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, flops_ms)
+    bound_by = 'bytes' if bytes_ms >= flops_ms else 'operations'
+    print(f'nms timing [4,384,1280]: kernel {kernel_ms * 1e3:.2f} us, '
+          f'bound {bound_ms * 1e3:.2f} us ({bound_by}), '
+          f'plain {plain_ms * 1e3:.2f} us')
+    return kernel_ms, plain_ms, bound_ms, bound_by
+
+
+def card_line():
+    out = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+        capture_output=True, text=True, timeout=60)
+    check(out.returncode == 0 and out.stdout.strip(), 'nvidia-smi failed')
+    return out.stdout.strip().splitlines()[0]
+
+
+def main():
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device', file=sys.stderr)
+        return 1
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device('cuda')
+    print(f'torch {torch.__version__} cuda {torch.version.cuda} on '
+          f'{torch.cuda.get_device_name(0)}')
+    phase_build()
+    px2, bad2, err2 = phase_kernel_vs_plain(dev)
+    phase_small_slice(dev)
+    launches, px4, bad4, err4 = phase_serve(dev)
+    kernel_ms, plain_ms, bound_ms, bound_by = time_nms(dev)
+    card = card_line()
+    print(card)
+    print(json.dumps({'kernels': [{
+        'name': 'nms_sobel5', 'route': 'cuda',
+        'source': 'mindtheedge_tpu_torch/csrc/nms_kernel.cu',
+        'replaces': 'mindtheedge_tpu/ops/pallas/nms_kernel.py:111',
+        'launches': launches, 'max_abs_err': max(err2, err4),
+        'mismatched_px': bad2 + bad4, 'checked_px': px2 + px4,
+        'tolerance': 'agree on >= 99.99% of pixels, kept values bit-equal',
+        'ms': kernel_ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
+        'bound_by': bound_by, 'library_ms': None}]}))
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())
