@@ -7,9 +7,11 @@ Run from the repository root, on a machine with one CUDA card and nvcc.
 1. Build every CUDA kernel of the path from ``mindtheedge_tpu_torch/csrc``
    (nvcc, sm_90a) into ``build/kernels/``.
 2. Hold the Sobel-5 + NMS kernel against its plain PyTorch version on the
-   card: uniform noise [4,384,1280], Gaussian-smoothed noise x4, odd shapes
-   and the exact-dyadic zero-gradient patch.  >= 99.99 % of pixels agree,
-   every pixel of the patch, and kept values are bit-equal.
+   card: uniform noise [4,384,1280], Gaussian-smoothed noise x4, the DEE
+   annotation scales, odd shapes (W % 4 != 0, H below one band), an input
+   that is not 16-byte aligned and the exact-dyadic zero-gradient patch.
+   >= 99.99 % of pixels agree, every pixel of the patch, and kept values
+   are bit-equal.
 3. Run a small PackNet-SAN 1A (channels (16,)*6, 64x96, batch 2, LiDAR) on
    the card and on the CPU with the same weights: all 4 scales at rtol 1e-4,
    atol 1e-5, TF32 off.
@@ -17,8 +19,10 @@ Run from the repository root, on a machine with one CUDA card and nvcc.
    95 %-sparse LiDAR) built by ``serve.build``: 2 warm-up requests (the
    first one runs cuDNN's autotuner) and 8 timed ones through
    ``serve.serve``, rgb and LiDAR perturbed on every request; the NMS
-   kernel must launch once per request.  Then time the kernel and its plain
-   version at [4,384,1280].
+   kernel must launch once per request.  Then time the kernel: at
+   [4,384,1280] on 8 inputs in turn (more than L2) by CUDA events, and by
+   ``torch.profiler`` over the same kind of run; on the served map, warm in
+   L2 as on the main path; at the DEE scales; and its plain version.
 
 Prints one line per phase, then the card's name and power limit, a JSON
 line of the kernels, and as its last line
@@ -34,16 +38,18 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from mindtheedge_tpu_torch import serve
 from mindtheedge_tpu_torch.models.packnet import SLIM_CHANNELS
 from mindtheedge_tpu_torch.ops import edge_ops, wire
 from mindtheedge_tpu_torch.ops.cuda import build, nms_kernel
-from tests.test_torch_nms_kernel import dyadic_patch, gaussian_blur
+from tests.test_torch_nms_kernel import dyadic_patch, gaussian_blur, misaligned
 
 KERNELS = ('nms_kernel',)
 B, H, W = 4, 384, 1280
 WARMUP, REQUESTS = 2, 8
+DEE_SHAPES = ((1, 192, 640), (1, 96, 320), (1, 48, 160))   # annotation scales
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12        # H100 SXM, fp32 outside the tensor cores
 NMS_FLOPS_PER_PX = 40           # separable Sobel-5 pair (32) + bucket tests
@@ -72,6 +78,15 @@ def event_ms(fn, iters):
     end.synchronize()
     check(enqueue_s < 0.25, f'enqueueing {iters} calls took {enqueue_s:.3f} s')
     return start.elapsed_time(end) / iters
+
+
+def nms_bound_ms(numel):
+    """(least ms the card could take for NMS of ``numel`` pixels, 'bytes'
+    or 'operations'): one f32 read and one write a pixel at 3.35 TB/s, or
+    the flops at 67 TFLOP/s, whichever is larger."""
+    bytes_ms = 2 * 4 * numel / HBM_BYTES_PER_S * 1e3
+    flops_ms = NMS_FLOPS_PER_PX * numel / FP32_FLOPS_PER_S * 1e3
+    return max(bytes_ms, flops_ms), 'bytes' if bytes_ms >= flops_ms else 'operations'
 
 
 def compare_nms(x):
@@ -103,14 +118,22 @@ def phase_kernel_vs_plain(dev):
     rng = np.random.RandomState(0)
     noise = rng.rand(B, H, W).astype(np.float32)
     smooth = np.stack([gaussian_blur(n) * 4.0 for n in noise[:2]])
-    inputs = {'noise[4,384,1280]': noise, 'smooth[2,384,1280]': smooth,
-              'odd[3,37,53]': rng.rand(3, 37, 53).astype(np.float32),
-              'odd[1,5,7]': rng.rand(1, 5, 7).astype(np.float32),
-              'dyadic[9,9]': dyadic_patch()}
+    inputs = {'noise[4,384,1280]': noise, 'smooth[2,384,1280]': smooth}
+    for shape in ((2, 192, 640), (2, 96, 320), (2, 48, 160), (3, 37, 53),
+                  (2, 70, 130), (1, 5, 7), (4, 3, 3), (2, 11, 4), (1, 9, 124),
+                  (4, 383, 1280), (2, 401, 1283)):
+        inputs['noise' + str(list(shape)).replace(' ', '')] = (
+            rng.rand(*shape).astype(np.float32))
+    inputs['misaligned[2,48,160]'] = rng.rand(2, 48, 160).astype(np.float32)
+    inputs['misaligned[4,384,1280]'] = rng.rand(B, H, W).astype(np.float32)
+    inputs['dyadic[9,9]'] = dyadic_patch()
     total_px = total_bad = 0
     max_err = 0.0
     for name, img in inputs.items():
-        bad, err = compare_nms(torch.from_numpy(img).to(dev))
+        x = torch.from_numpy(img).to(dev)
+        if name.startswith('misaligned'):
+            x = misaligned(x)
+        bad, err = compare_nms(x)
         check(bad <= 1e-4 * img.size, f'NMS {name}: {bad} mismatches')
         if name.startswith('dyadic'):
             check(bad == 0, f'NMS {name}: {bad} mismatches')
@@ -218,27 +241,66 @@ def phase_serve(dev):
     check(0.0 < kept < 1.0, f'NMS kept {kept} of the served map')
     print(f'phase 4 nms kernel vs plain on the served map: {bad} of '
           f'{prob.numel()} pixels differ, max |err| {err}; NMS keeps {kept:.4f}')
-    return launches, prob.numel(), bad, err
+    return launches, prob, bad, err
 
 
-def time_nms(dev):
-    """Kernel and plain version at [4,384,1280]; 8 inputs in turn, 63 MB,
-    more than the 50 MB L2, so each call reads its input from HBM."""
+def profiled_kernel_us(fn, iters):
+    """(CUDA-events mean ms of ``event_ms(fn, iters)`` run under
+    ``torch.profiler``, the profiler's mean device us of the NMS kernel in
+    that run, or None where it shows no device time)."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ms = event_ms(fn, iters)
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and 'nms_sobel5_kernel' in e.key]
+    count = sum(e.count for e in rows)
+    if not count or not sum(e.self_device_time_total for e in rows):
+        return ms, None
+    return ms, sum(e.self_device_time_total for e in rows) / count
+
+
+def time_nms(prob):
+    """Kernel and plain version at [4,384,1280] on 8 inputs in turn, 63 MB,
+    more than the 50 MB L2, so each call reads its input from HBM; then the
+    kernel on the served map ``prob`` (warm in L2, as on the main path), a
+    copy of the same bytes, the kernel at the DEE annotation scales (one
+    input each), and last the 8-input run again under ``torch.profiler``."""
+    dev = prob.device
     gen = torch.Generator(device=dev).manual_seed(0)
     xs = [torch.rand(B, H, W, device=dev, generator=gen) for _ in range(8)]
     for x in xs:
         nms_kernel.non_max_suppression(x)
         edge_ops.non_max_suppression(x)
-    kernel_ms = event_ms(lambda i: nms_kernel.non_max_suppression(xs[i % 8]), 400)
+    rotate = lambda i: nms_kernel.non_max_suppression(xs[i % 8])
+    kernel_ms = event_ms(rotate, 400)
     plain_ms = event_ms(lambda i: edge_ops.non_max_suppression(xs[i % 8]), 4)
-    numel = B * H * W
-    bytes_ms = 2 * 4 * numel / HBM_BYTES_PER_S * 1e3
-    flops_ms = NMS_FLOPS_PER_PX * numel / FP32_FLOPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, flops_ms)
-    bound_by = 'bytes' if bytes_ms >= flops_ms else 'operations'
-    print(f'nms timing [4,384,1280]: kernel {kernel_ms * 1e3:.2f} us, '
-          f'bound {bound_ms * 1e3:.2f} us ({bound_by}), '
-          f'plain {plain_ms * 1e3:.2f} us')
+    warm_ms = event_ms(lambda i: nms_kernel.non_max_suppression(prob), 400)
+    # a yardstick, not the function: moving the same bytes, device to device
+    copy_to = torch.empty_like(xs[0]).copy_(xs[0])
+    copy_ms = event_ms(lambda i: copy_to.copy_(xs[i % 8]), 400)
+    bound_ms, bound_by = nms_bound_ms(B * H * W)
+    print(f'nms timing [4,384,1280], 8 inputs in turn: kernel '
+          f'{kernel_ms * 1e3:.3f} us by CUDA events, bound '
+          f'{bound_ms * 1e3:.3f} us ({bound_by}), '
+          f'{100 * bound_ms / kernel_ms:.1f} % of bound; plain '
+          f'{plain_ms * 1e3:.2f} us')
+    print(f'nms timing on the served map {list(prob.shape)}, warm in L2: '
+          f'{warm_ms * 1e3:.3f} us')
+    print(f'copy of the same bytes [4,384,1280] (torch copy_, 8 inputs in '
+          f'turn): {copy_ms * 1e3:.3f} us')
+    for shape in DEE_SHAPES:
+        x = torch.rand(*shape, device=dev, generator=gen)
+        nms_kernel.non_max_suppression(x)
+        ms = event_ms(lambda i: nms_kernel.non_max_suppression(x), 400)
+        bound, _ = nms_bound_ms(x.numel())
+        print(f'nms timing {list(shape)}: {ms * 1e3:.3f} us per launch, '
+              f'bound {bound * 1e3:.3f} us')
+    prof_events_ms, prof_us = profiled_kernel_us(rotate, 400)
+    print(f'nms timing [4,384,1280] under torch.profiler: CUDA events '
+          f'{prof_events_ms * 1e3:.3f} us per launch, kernel duration '
+          + ('not shown (the profiler shows no device time)' if prof_us is None
+             else f'{prof_us:.3f} us, gap between launches '
+                  f'{prof_events_ms * 1e3 - prof_us:.3f} us'))
     return kernel_ms, plain_ms, bound_ms, bound_by
 
 
@@ -262,8 +324,8 @@ def main():
     phase_build()
     px2, bad2, err2 = phase_kernel_vs_plain(dev)
     phase_small_slice(dev)
-    launches, px4, bad4, err4 = phase_serve(dev)
-    kernel_ms, plain_ms, bound_ms, bound_by = time_nms(dev)
+    launches, prob, bad4, err4 = phase_serve(dev)
+    kernel_ms, plain_ms, bound_ms, bound_by = time_nms(prob)
     card = card_line()
     print(card)
     print(json.dumps({'kernels': [{
@@ -271,7 +333,7 @@ def main():
         'source': 'mindtheedge_tpu_torch/csrc/nms_kernel.cu',
         'replaces': 'mindtheedge_tpu/ops/pallas/nms_kernel.py:111',
         'launches': launches, 'max_abs_err': max(err2, err4),
-        'mismatched_px': bad2 + bad4, 'checked_px': px2 + px4,
+        'mismatched_px': bad2 + bad4, 'checked_px': px2 + prob.numel(),
         'tolerance': 'agree on >= 99.99% of pixels, kept values bit-equal',
         'ms': kernel_ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
         'bound_by': bound_by, 'library_ms': None}]}))

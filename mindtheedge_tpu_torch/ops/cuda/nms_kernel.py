@@ -15,7 +15,8 @@ from mindtheedge_tpu_torch.ops import edge_ops
 from mindtheedge_tpu_torch.ops.cuda import build
 
 launches = 0
-_MAX_BATCH = 65535          # the kernel's grid z dimension
+_MAX_SIDE = 2 ** 30         # H and W, so that column and row indices fit int32
+_MAX_BATCH = 2 ** 31 - 1    # the C entry point's int
 
 
 @functools.cache
@@ -46,9 +47,9 @@ def non_max_suppression(img):
         raise ValueError('NMS kernel takes a contiguous tensor')
     h, w = img.shape[-2:]
     batch = img.shape[0] if img.ndim == 3 else 1
-    if h < 3 or w < 3 or batch > _MAX_BATCH:
-        raise ValueError(f'NMS kernel takes H, W >= 3 and B <= {_MAX_BATCH}, '
-                         f'got {tuple(img.shape)}')
+    if not (3 <= h < _MAX_SIDE and 3 <= w < _MAX_SIDE) or batch > _MAX_BATCH:
+        raise ValueError(f'NMS kernel takes 3 <= H, W < {_MAX_SIDE} and '
+                         f'B <= {_MAX_BATCH}, got {tuple(img.shape)}')
     out = torch.empty_like(img)
     if batch == 0:
         return out

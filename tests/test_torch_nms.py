@@ -54,7 +54,8 @@ def test_plain_nms_dyadic_patch_exact():
     assert got[4, 4] == 0.5
 
 
-@pytest.mark.parametrize('shape', [(37, 53), (3, 37, 53), (1, 5, 7), (3, 3)])
+@pytest.mark.parametrize('shape', [(37, 53), (3, 37, 53), (1, 5, 7), (3, 3),
+                                   (2, 70, 130), (48, 160), (96, 320)])
 def test_plain_nms_odd_shapes(shape):
     rng = np.random.RandomState(4)
     img = rng.rand(*shape).astype(np.float32)
