@@ -15,6 +15,10 @@ Run from the repository root, on a machine with one CUDA card and nvcc.
 3. Run a small PackNet-SAN 1A (channels (16,)*6, 64x96, batch 2, LiDAR) on
    the card and on the CPU with the same weights: all 4 scales at rtol 1e-4,
    atol 1e-5, TF32 off.
+   Then ``annotate_batch`` of the DEE path, card vs CPU on the same
+   network and inputs: edge maps within 1e-4 on >= 99.9 % of pixels per
+   scale,
+   normals within one code on >= 99.9 %, hysteresis bit-equal.
 4. Serve full-width PackNet-SAN 1A (SLIM channels, 384x1280, batch 4, fp32,
    95 %-sparse LiDAR) built by ``serve.build``: 2 warm-up requests (the
    first one runs cuDNN's autotuner) and 8 timed ones through
@@ -23,9 +27,27 @@ Run from the repository root, on a machine with one CUDA card and nvcc.
    [4,384,1280] on 8 inputs in turn (more than L2) by CUDA events, and by
    ``torch.profiler`` over the same kind of run; on the served map, warm in
    L2 as on the main path; at the DEE scales; and its plain version.
+5. The DEE annotation path at full width (``EdgeEstimationLIDARModel``, the
+   same network, LiDAR /200): 2 warm-up and 8 timed batches through
+   ``cli.infer_edge_estimation.annotate_batch`` (forward, then at each of
+   the 4 scales normals, the NMS kernel and hysteresis), uploads and
+   read-backs included; the NMS kernel must launch 4 times per batch.
+   Each scale's NMS map is held against the plain version, and hysteresis
+   on the card against hysteresis on the CPU, bit for bit.  Prints ms per
+   batch, hysteresis iterations, checks and their cost per scale, host
+   syncs per batch, peak memory, the kernel's time at the 4 shapes and
+   the time of each stage alone.
+6. The batch-inference path at full width (``SemiSupEdgeModel``, the same
+   network): 2 warm-up and 8 timed batches through
+   ``cli.infer_edges.infer_batch`` with the sparse uint16 LiDAR uplink and
+   the uint16 depth downlink, uploaded and read back by the CLI's pinned
+   helpers with no host sync (torch's sync debug mode, a prototype that
+   does not see every sync, raises on the ones it sees);
+   depth finite and >= 0.5 m, and the uint16 codes within one code of the
+   dense float32 uplink's.
 
-Prints one line per phase, then the card's name and power limit, a JSON
-line of the kernels, and as its last line
+Prints one line per phase, the wall time, then the card's name and power
+limit, a JSON line of the kernels, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failure exits nonzero; without a CUDA
 device it exits nonzero and prints no result.
 """
@@ -41,15 +63,22 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from mindtheedge_tpu_torch import serve
+from mindtheedge_tpu_torch.cli.infer_edge_estimation import annotate_batch
+from mindtheedge_tpu_torch.cli import infer_edges
+from mindtheedge_tpu_torch.cli.infer_edges import infer_batch
 from mindtheedge_tpu_torch.models.packnet import SLIM_CHANNELS
+from mindtheedge_tpu_torch.models.tasks import build_task
 from mindtheedge_tpu_torch.ops import edge_ops, wire
 from mindtheedge_tpu_torch.ops.cuda import build, nms_kernel
+from tests.test_torch_annotate_cuda import (
+    annotate_card_vs_cpu, random_frames, task_config)
 from tests.test_torch_nms_kernel import dyadic_patch, gaussian_blur, misaligned
 
 KERNELS = ('nms_kernel',)
 B, H, W = 4, 384, 1280
 WARMUP, REQUESTS = 2, 8
 DEE_SHAPES = ((1, 192, 640), (1, 96, 320), (1, 48, 160))   # annotation scales
+SCALES = 4                      # annotation scales of the DEE network
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12        # H100 SXM, fp32 outside the tensor cores
 NMS_FLOPS_PER_PX = 40           # separable Sobel-5 pair (32) + bucket tests
@@ -172,6 +201,16 @@ def phase_small_slice(dev):
     print(f'phase 3 small slice card vs cpu: 4 scales within rtol 1e-4 '
           f'atol 1e-5 (max |err| {worst}); serve depth codes within '
           f'{int(dq)}, edge bits agree on {agree:.6f}')
+    shares = annotate_card_vs_cpu(dev)
+    for scale, (edge, normals) in enumerate(shares):
+        check(edge >= 0.999 and normals >= 0.999,
+              f'small annotate_batch card vs cpu, scale {scale}: edges within '
+              f'1e-4 on {edge:.5f}, normals within one code on {normals:.5f}')
+    print('phase 3 small annotate_batch card vs cpu [2,64,96]: edges within '
+          '1e-4 on '
+          + ', '.join(f'{e:.5f}' for e, _ in shares) + '; normals within one '
+          'code on ' + ', '.join(f'{n:.5f}' for _, n in shares)
+          + ' (scales 0-3); hysteresis bit-equal')
 
 
 def phase_serve(dev):
@@ -304,6 +343,180 @@ def time_nms(prob):
     return kernel_ms, plain_ms, bound_ms, bound_by
 
 
+def sync_ms(fn, iters):
+    """Mean ms of ``fn(i)`` over ``iters`` calls by CUDA events, for work
+    that waits for the card itself (so ``event_ms``'s enqueue check cannot
+    hold): events around the calls, then wait."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for i in range(iters):
+        fn(i)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def frames(seed, i, scale_lidar=1.0):
+    """Batch ``i`` of a seeded full-width stream, pinned: rgb shifted by
+    i/256 and set LiDAR points moved by i/256 m (staying on the uint16 PNG
+    grid), the LiDAR then multiplied by ``scale_lidar``."""
+    rgb, lidar = random_frames(np.random.RandomState(seed), B, H, W)
+    rgb = (rgb + i / 256.0) % 1.0
+    lidar = (lidar + (i / 256.0) * (lidar > 0)) * scale_lidar
+    return rgb.pin_memory(), lidar.pin_memory()
+
+
+def phase_annotate(dev, kernel_ms):
+    """The DEE annotation path at full width -> (launches, checked pixels,
+    mismatches, max |err|)."""
+    task = build_task(task_config('EdgeEstimationLIDARModel'), device=dev)
+    batches = [frames(5, i, 1.0 / 200.0) for i in range(WARMUP + REQUESTS)]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    nms_kernel.launches = 0
+    device_ms, wall_ms = [], []
+    for i, (rgb, lidar) in enumerate(batches):
+        if i == WARMUP:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        start.record()
+        results = annotate_batch(task, rgb.to(dev, non_blocking=True),
+                                 lidar.to(dev, non_blocking=True))
+        host = [(r['edge'].cpu(), r['normals'].cpu()) for r in results]
+        end.record()
+        end.synchronize()
+        if i >= WARMUP:
+            device_ms.append(start.elapsed_time(end))
+            wall_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = nms_kernel.launches
+    peak = torch.cuda.max_memory_allocated()
+    check(launches == SCALES * len(batches),
+          f'NMS kernel launched {launches} times in {len(batches)} '
+          f'annotation batches')
+    for s, (edge, normals) in enumerate(host):
+        shape = (B, H >> s, W >> s)
+        check(tuple(edge.shape) == shape and tuple(normals.shape) == shape,
+              f'scale {s}: edge {tuple(edge.shape)} normals {tuple(normals.shape)}')
+        check(bool(torch.isfinite(edge).all()) and 0.0 <= float(edge.min())
+              and float(edge.max()) <= 1.0 and float(edge.max()) > 0.0,
+              f'scale {s}: edge values [{float(edge.min())}, {float(edge.max())}]')
+        check(0.0 <= float(normals.min()) and float(normals.max()) <= 255.0,
+              f'scale {s}: normal codes out of [0, 255]')
+    counts = [r['hysteresis'] for r in results]
+    syncs = sum(c for _, c in counts) + 2 * SCALES
+    mean_ms = float(np.mean(device_ms))
+    print(f'phase 5 annotate 384x1280 b{B} fp32, 4 scales, NMS + hysteresis + '
+          f'normals: {REQUESTS} batches after {WARMUP} warm-up, '
+          f'{mean_ms:.3f} ms/batch by CUDA events (min {min(device_ms):.3f}, '
+          f'max {max(device_ms):.3f}; host wall {float(np.mean(wall_ms)):.3f}), '
+          f'{B * 1e3 / mean_ms:.2f} img/s, peak {peak / 2**30:.3f} GiB, nms '
+          f'launches {launches} ({launches / len(batches):g} per batch), '
+          f'hysteresis (iterations, checks) per scale {counts}, host syncs '
+          f'per batch {syncs} ({syncs - 2 * SCALES} hysteresis checks + '
+          f'{2 * SCALES} read-backs)')
+
+    # the last batch again, outside the counted run: each scale's kernel
+    # output against the plain version, and hysteresis card vs CPU
+    rgb, lidar = batches[-1]
+    batch = {'rgb': rgb.to(dev), 'input_depth': lidar.to(dev)}
+    forward_ms = sync_ms(lambda i: task.run_depth(batch), 3)
+    inv = task.run_depth(batch)
+    px = bad = 0
+    max_err = 0.0
+    stage_ms = {'nms': [], 'normals': [], 'hysteresis': [], 'read-back': []}
+    for s in range(SCALES):
+        prob = inv['inv_depths'][s][..., 0] / 2.0
+        n_bad, err = compare_nms(prob)
+        check(n_bad <= 1e-4 * prob.numel(), f'scale {s} NMS: {n_bad} mismatches')
+        px, bad, max_err = px + prob.numel(), bad + n_bad, max(max_err, err)
+        nms = nms_kernel.non_max_suppression(prob)
+        on_card, iters, checks = edge_ops.hysteresis_counted(nms)
+        check(torch.equal(on_card.cpu(), edge_ops.hysteresis(nms.cpu())),
+              f'scale {s}: hysteresis differs card vs CPU')
+        hyst_ms = sync_ms(lambda i: edge_ops.hysteresis_counted(nms), 5)
+        by_interval = {k: sync_ms(lambda i: edge_ops.hysteresis_counted(
+            nms, check_every=k), 5) for k in (1, 16)}
+        stage_ms['hysteresis'].append(hyst_ms)
+        stage_ms['nms'].append(kernel_ms if s == 0 else event_ms(
+            lambda i: nms_kernel.non_max_suppression(prob), 400))
+        stage_ms['normals'].append(event_ms(
+            lambda i: edge_ops.normals_angle_255(prob), 20))
+        stage_ms['read-back'].append(sync_ms(lambda i: (nms.cpu(), nms.cpu()), 5))
+        print(f'phase 5 scale {s} {list(prob.shape)}: NMS kernel vs plain '
+              f'{n_bad} of {prob.numel()} pixels differ, max |err| {err}; '
+              f'kernel {stage_ms["nms"][-1] * 1e3:.3f} us'
+              + (' (8 inputs in turn, nms timing above)' if s == 0 else
+                 ' (warm in L2)') + f'; hysteresis bit-equal card vs CPU, '
+              f'{iters} iterations, {checks} checks of every '
+              f'{edge_ops.CHECK_EVERY} steps {hyst_ms:.3f} ms; checks of '
+              + ', '.join(f'every {k} {v:.3f} ms' for k, v in by_interval.items())
+              + f'; normals '
+              f'{stage_ms["normals"][-1]:.3f} ms; read-back of edge and '
+              f'normals {stage_ms["read-back"][-1]:.3f} ms')
+    share = 100 * sum(stage_ms['nms']) / mean_ms
+    print(f'phase 5 NMS kernel per annotation batch: {SCALES} launches, '
+          f'{sum(stage_ms["nms"]) * 1e3:.3f} us, {share:.4f} % of the batch')
+    print(f'phase 5 where an annotation batch goes (each stage timed alone, '
+          f'ms): forward {forward_ms:.3f}, '
+          + ', '.join(f'{k} {sum(v):.3f}' for k, v in stage_ms.items())
+          + f'; the rest (uploads, scale halving, launch gaps) '
+          f'{mean_ms - forward_ms - sum(map(sum, stage_ms.values())):.3f}')
+    return launches, px, bad, max_err
+
+
+def phase_infer(dev):
+    """The batch-inference path at full width, sparse uint16 LiDAR up and
+    uint16 depth down, through the CLI's own upload and read-back; the
+    timed batches run with torch's sync debug mode on 'error', so any host
+    sync on the path fails the phase -> NMS launches (none on this path)."""
+    task = build_task(task_config('SemiSupEdgeModel'), device=dev)
+    cap = H * W // 8
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    nms_kernel.launches = 0
+    device_ms, encode_ms = [], []
+    for i in range(WARMUP + REQUESTS):
+        rgb, lidar = frames(6, i)
+        t0 = time.perf_counter()
+        pairs = [wire.encode_lidar_sparse(l.numpy(), cap) for l in lidar]
+        idx = np.stack([p[0] for p in pairs]).view(np.int32)
+        val = np.stack([p[1] for p in pairs])
+        t1 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode('error' if i >= WARMUP else 0)
+        start.record()
+        sparse = (infer_edges.upload(idx, dev), infer_edges.upload(val, dev))
+        depth_host, done = infer_edges.start_readback(infer_batch(
+            task, infer_edges.upload(rgb.numpy(), dev), sparse, 'u16'))
+        end.record()
+        torch.cuda.set_sync_debug_mode(0)
+        end.synchronize()
+        check(done.query(), 'read-back not complete at the end event')
+        if i >= WARMUP:
+            device_ms.append(start.elapsed_time(end))
+            encode_ms.append((t1 - t0) * 1e3)
+    launches = nms_kernel.launches
+    check(depth_host.dtype == torch.uint16 and depth_host.shape == (B, H, W),
+          f'depth wire {depth_host.dtype} {tuple(depth_host.shape)}')
+    depth = wire.decode_depth_u16(depth_host)
+    check(bool(torch.isfinite(depth).all()) and float(depth.min()) >= 0.5,
+          f'depth out of range [{float(depth.min())}, {float(depth.max())}]')
+    dense = infer_batch(task, rgb.to(dev), lidar.to(dev), 'u16').cpu()
+    codes = int((dense.to(torch.int64) - depth_host.to(torch.int64)).abs().max())
+    check(codes <= 1, f'sparse vs dense uplink: u16 codes differ by {codes}')
+    mean_ms = float(np.mean(device_ms))
+    print(f'phase 6 infer 384x1280 b{B} fp32, sparse u16 LiDAR up ({cap} '
+          f'slots a frame), u16 depth down: {REQUESTS} batches after {WARMUP} '
+          f'warm-up, no host sync on the path (sync debug mode), '
+          f'{mean_ms:.3f} ms/batch by CUDA events (min {min(device_ms):.3f}, '
+          f'max {max(device_ms):.3f}), {B * 1e3 / mean_ms:.2f} img/s; host '
+          f'sparse encode {float(np.mean(encode_ms)):.3f} ms/batch; depth '
+          f'[{float(depth.min()):.3f}, {float(depth.max()):.3f}] m; u16 codes '
+          f'within {codes} of the dense float32 uplink; nms launches {launches}')
+    return launches
+
+
 def card_line():
     out = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
@@ -319,21 +532,29 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device('cuda')
+    t0 = time.perf_counter()
     print(f'torch {torch.__version__} cuda {torch.version.cuda} on '
           f'{torch.cuda.get_device_name(0)}')
     phase_build()
     px2, bad2, err2 = phase_kernel_vs_plain(dev)
     phase_small_slice(dev)
-    launches, prob, bad4, err4 = phase_serve(dev)
+    launches4, prob, bad4, err4 = phase_serve(dev)
     kernel_ms, plain_ms, bound_ms, bound_by = time_nms(prob)
+    launches5, px5, bad5, err5 = phase_annotate(dev, kernel_ms)
+    launches6 = phase_infer(dev)
+    print(f'chip_smoke wall time {time.perf_counter() - t0:.1f} s')
     card = card_line()
     print(card)
     print(json.dumps({'kernels': [{
         'name': 'nms_sobel5', 'route': 'cuda',
         'source': 'mindtheedge_tpu_torch/csrc/nms_kernel.cu',
         'replaces': 'mindtheedge_tpu/ops/pallas/nms_kernel.py:111',
-        'launches': launches, 'max_abs_err': max(err2, err4),
-        'mismatched_px': bad2 + bad4, 'checked_px': px2 + prob.numel(),
+        'launches': launches4 + launches5 + launches6,
+        'launches_by_path': {'serve': launches4, 'annotate': launches5,
+                             'infer': launches6},
+        'max_abs_err': max(err2, err4, err5),
+        'mismatched_px': bad2 + bad4 + bad5,
+        'checked_px': px2 + prob.numel() + px5,
         'tolerance': 'agree on >= 99.99% of pixels, kept values bit-equal',
         'ms': kernel_ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
         'bound_by': bound_by, 'library_ms': None}]}))

@@ -10,6 +10,7 @@ import math
 import torch
 import torch.nn as nn
 
+from mindtheedge_tpu_torch import resolve_device
 from mindtheedge_tpu_torch.ops.blocks import (
     ConvBlock, InvDepthHead, PackLayerConv3d, ResidualBlock, UnpackLayerConv3d)
 from mindtheedge_tpu_torch.ops.packing import upsample_nearest2x
@@ -100,13 +101,25 @@ class PackNetSAN(nn.Module):
     ``{'inv_depths': [4 x [B,h,w,1]]}``, NHWC.  With LiDAR, each skip level
     is fused as ``skip * weight[i] + san[i] + bias[i]`` (``:234-243``).
     The train contract waits for a later slice: the module raises in
-    training mode.
+    training mode.  ``version`` and ``input_channels`` are the config's
+    (``tasks.build_depth_net``); only 1A on RGB is ported, and the
+    4-channel ``rgb_edge`` input and versions other than 1A raise
+    (ROADMAP Queue 1 item 10).
     """
 
-    def __init__(self, channels=SLIM_CHANNELS):
+    def __init__(self, channels=SLIM_CHANNELS, version='1A', input_channels=3,
+                 output_channels=1):
         super().__init__()
+        if version != '1A':
+            raise NotImplementedError(
+                f'PackNetSAN version {version!r}: only 1A is ported '
+                '(ROADMAP Queue 1 item 10)')
+        if input_channels != 3:
+            raise NotImplementedError(
+                f'PackNetSAN with input_channels={input_channels} (rgb_edge '
+                'input) waits for ROADMAP Queue 1 item 10')
         self.encoder = PackNetSlimEncoder(channels)
-        self.decoder = PackNetDecoder(channels)
+        self.decoder = PackNetDecoder(channels, output_channels)
         self.mconvs = SparseDepthEncoder(tuple(channels[1:]))
         self.weight = nn.Parameter(torch.ones(5))
         self.bias = nn.Parameter(torch.zeros(5))
@@ -147,3 +160,19 @@ def init_weights(model, seed=0):
             elif isinstance(m, MinkConv):
                 m.reset_parameters(gen)
     return model
+
+
+def to_device(model, device=None):
+    """``model`` in eval mode on ``device`` (``None`` -> CUDA, which must be
+    present).  Every entry point builds its model through here.
+
+    On CUDA this turns on cuDNN's autotuner for the process
+    (``torch.backends.cudnn.benchmark``): cuDNN's heuristics pick an
+    FFT-tiling algorithm for the 3x3 convs with 256 inputs at 48x160 that
+    made a batch-4 request 7x slower on an H100 (PERF.md).  The first
+    forward at each input shape pays for the tuning.
+    """
+    device = resolve_device(device)
+    if device.type == 'cuda':
+        torch.backends.cudnn.benchmark = True
+    return model.to(device).eval()

@@ -17,7 +17,7 @@ import torch
 
 from mindtheedge_tpu_torch import resolve_device
 from mindtheedge_tpu_torch.models.packnet import (
-    SLIM_CHANNELS, PackNetSAN, init_weights)
+    SLIM_CHANNELS, PackNetSAN, init_weights, to_device)
 from mindtheedge_tpu_torch.ops.wire import (
     encode_depth_u8, encode_depth_u16, pack_edges)
 from mindtheedge_tpu_torch.ops.cuda.nms_kernel import non_max_suppression
@@ -28,19 +28,10 @@ _DEPTH_ENCODERS = {'u16': encode_depth_u16, 'u8': encode_depth_u8}
 
 def build(channels=SLIM_CHANNELS, device=None, seed=0):
     """PackNet-SAN 1A with weights drawn from ``seed``, in eval mode on
-    ``device`` (``None`` -> CUDA, which must be present).
-
-    On CUDA this turns on cuDNN's autotuner for the process
-    (``torch.backends.cudnn.benchmark``): cuDNN's heuristics pick an
-    FFT-tiling algorithm for the 3x3 convs with 256 inputs at 48x160 that
-    made a batch-4 request 7x slower on an H100 (PERF.md).  The first
-    request at each input shape pays for the tuning.
-    """
+    ``device`` (``None`` -> CUDA, which must be present), through
+    ``models.packnet.to_device``."""
     device = resolve_device(device)
-    if device.type == 'cuda':
-        torch.backends.cudnn.benchmark = True
-    model = init_weights(PackNetSAN(tuple(channels)), seed)
-    return model.to(device).eval()
+    return to_device(init_weights(PackNetSAN(tuple(channels)), seed), device)
 
 
 @torch.no_grad()

@@ -75,9 +75,12 @@ def pack_layer(sd, name, p):
 
 
 def batch_norm(sd, name, p, stats):
-    """MaskedBatchNorm {scale, bias} + batch_stats {mean, var} -> ``{name}.bn``."""
+    """MaskedBatchNorm {scale, bias} + batch_stats {mean, var} -> ``{name}.bn``;
+    ``stats`` None leaves the running statistics out."""
     sd[f'{name}.bn.weight'] = _t(p['scale'])
     sd[f'{name}.bn.bias'] = _t(p['bias'])
+    if stats is None:
+        return
     sd[f'{name}.bn.running_mean'] = _t(stats['mean'])
     sd[f'{name}.bn.running_var'] = _t(stats['var'])
     sd[f'{name}.bn.num_batches_tracked'] = torch.tensor(0)
@@ -86,7 +89,8 @@ def batch_norm(sd, name, p, stats):
 def sparse_encoder(sd, name, p, stats):
     """SparseDepthEncoder {mconv0, ...} -> ``{name}.mconvs.{lvl}.*``."""
     for lvl in range(len(p)):
-        pl, sl = p[f'mconv{lvl}'], stats[f'mconv{lvl}']
+        pl = p[f'mconv{lvl}']
+        sl = None if stats is None else stats[f'mconv{lvl}']
         base = f'{name}.mconvs.{lvl}'
         # nn.Sequential slots: conv at 3j, batch norm at 3j+1 (ReLU at 3j+2)
         for layer, n_convs in (('layer1', 1), ('layer2', 2), ('layer3', 3)):
@@ -95,12 +99,15 @@ def sparse_encoder(sd, name, p, stats):
                     _mink(pl[f'{layer}_{j}']['conv']['kernel'])
                 if j < n_convs - 1:
                     batch_norm(sd, f'{base}.{layer}.{3 * j + 1}',
-                               pl[f'{layer}_bn{j}'], sl[f'{layer}_bn{j}'])
-        batch_norm(sd, f'{base}.layer_final.0', pl['final_bn'], sl['final_bn'])
+                               pl[f'{layer}_bn{j}'],
+                               None if sl is None else sl[f'{layer}_bn{j}'])
+        batch_norm(sd, f'{base}.layer_final.0', pl['final_bn'],
+                   None if sl is None else sl['final_bn'])
 
 
-def state_dict_from_jax(params, batch_stats):
-    """JAX PackNetSAN ``params`` and ``batch_stats`` -> port ``state_dict``."""
+def state_dict_from_jax(params, batch_stats=None):
+    """JAX PackNetSAN ``params`` and ``batch_stats`` -> port ``state_dict``.
+    Without ``batch_stats`` the SAN running statistics are left out."""
     sd = {}
     enc, dec = params['encoder'], params['decoder']
     conv_block(sd, 'encoder.pre_calc', enc['pre_calc'])
@@ -113,7 +120,8 @@ def state_dict_from_jax(params, batch_stats):
         conv_block(sd, f'decoder.iconv{i}', dec[f'iconv{i}'])
     for i in range(1, 5):
         conv(sd, f'decoder.disp{i}_layer.conv1', dec[f'disp{i}_layer']['conv1'])
-    sparse_encoder(sd, 'mconvs', params['mconvs'], batch_stats['mconvs'])
+    sparse_encoder(sd, 'mconvs', params['mconvs'],
+                   None if batch_stats is None else batch_stats['mconvs'])
     sd['weight'] = _t(params['weight'])
     sd['bias'] = _t(params['bias'])
     return sd

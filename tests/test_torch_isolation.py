@@ -18,13 +18,17 @@ def _forbidden(module):
             or module.startswith('mindtheedge_tpu.'))
 
 
-def test_every_submodule_imports_with_jax_blocked():
+def _import_all_with_blocked(blocked):
+    """Import every submodule of the port in a fresh interpreter in which
+    the ``blocked`` modules cannot be imported."""
     names = [m.name for m in pkgutil.walk_packages(
         [str(PACKAGE)], prefix='mindtheedge_tpu_torch.')]
-    assert 'mindtheedge_tpu_torch.serve' in names
+    for name in ('serve', 'cli.infer_edges', 'cli.infer_edge_estimation',
+                 'config', 'data.readers', 'models.tasks', 'training.checkpoint'):
+        assert f'mindtheedge_tpu_torch.{name}' in names
     code = ("import sys, importlib\n"
-            "sys.modules['jax'] = None\n"
-            "sys.modules['mindtheedge_tpu'] = None\n"
+            f"for b in {list(blocked)!r}:\n"
+            "    sys.modules[b] = None\n"
             "import mindtheedge_tpu_torch\n"
             f"for n in {names!r}:\n"
             "    importlib.import_module(n)\n"
@@ -32,6 +36,17 @@ def test_every_submodule_imports_with_jax_blocked():
     out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == 'ok', out.stderr
+
+
+def test_every_submodule_imports_with_jax_blocked():
+    _import_all_with_blocked(('jax', 'mindtheedge_tpu'))
+
+
+def test_every_submodule_imports_without_host_io_packages():
+    """The card's machine may lack matplotlib, cv2, yaml or PIL: the port
+    imports them only inside the host I/O functions that use them."""
+    _import_all_with_blocked(('jax', 'mindtheedge_tpu', 'matplotlib', 'cv2',
+                              'yaml', 'PIL'))
 
 
 def test_sources_name_no_jax_import():
