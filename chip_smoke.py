@@ -21,14 +21,14 @@ Run from the repository root, on a machine with one CUDA card and nvcc.
    normals within one code on >= 99.9 %, hysteresis bit-equal.
 4. Serve full-width PackNet-SAN 1A (SLIM channels, 384x1280, batch 4, fp32,
    95 %-sparse LiDAR) built by ``serve.build``: 2 warm-up requests (the
-   first one runs cuDNN's autotuner) and 8 timed ones through
+   first one runs cuDNN's autotuner) and 5 timed ones through
    ``serve.serve``, rgb and LiDAR perturbed on every request; the NMS
    kernel must launch once per request.  Then time the kernel: at
    [4,384,1280] on 8 inputs in turn (more than L2) by CUDA events, and by
    ``torch.profiler`` over the same kind of run; on the served map, warm in
    L2 as on the main path; at the DEE scales; and its plain version.
 5. The DEE annotation path at full width (``EdgeEstimationLIDARModel``, the
-   same network, LiDAR /200): 2 warm-up and 8 timed batches through
+   same network, LiDAR /200): 2 warm-up and 5 timed batches through
    ``cli.infer_edge_estimation.annotate_batch`` (forward, then at each of
    the 4 scales normals, the NMS kernel and hysteresis), uploads and
    read-backs included; the NMS kernel must launch 4 times per batch.
@@ -38,16 +38,38 @@ Run from the repository root, on a machine with one CUDA card and nvcc.
    syncs per batch, peak memory, the kernel's time at the 4 shapes and
    the time of each stage alone.
 6. The batch-inference path at full width (``SemiSupEdgeModel``, the same
-   network): 2 warm-up and 8 timed batches through
+   network): 2 warm-up and 5 timed batches through
    ``cli.infer_edges.infer_batch`` with the sparse uint16 LiDAR uplink and
    the uint16 depth downlink, uploaded and read back by the CLI's pinned
    helpers with no host sync (torch's sync debug mode, a prototype that
    does not see every sync, raises on the ones it sees);
    depth finite and >= 0.5 m, and the uint16 codes within one code of the
    dense float32 uplink's.
+7. Training (``SemiSupEdgeModel``; no kernel lies on this path: the NMS
+   kernel must launch 0 times).
+   a. One ``train_step`` at [2,64,96], channels (16,)*6, dropout 0,
+      ``flip_lr_prob`` 0, on the card and on the CPU from the same weights
+      and batch (``tests/test_torch_train_cuda.py``): loss rtol 1e-4,
+      gradients within 1e-4 of each tensor's largest, parameters after the
+      Adam step within lr * 1e-2, SAN running statistics rtol 1e-4.
+   b. Full width: the task of ``configs/train_packnet_san_kitti_with_edges.yaml``
+      with ``arch.precision`` float32 (dropout 0.5, ``flip_lr_prob`` 0.5,
+      edge weight 10, GradLoss at 4 scales with normals, sparse-silog, Adam
+      lr 1e-4), random weights from its seed, one seeded synthetic batch
+      made on the card (batch 3, 384x1280, a blocky depth scene, LiDAR 95 %
+      sparse, GT 75 % sparse, edges and normals at the 4 scales): 2 warm-up
+      steps (cuDNN's autotuner), 10 timed by CUDA events, then the
+      forward, the loss, the backward and the optimizer each timed alone.
+      Fails on a non-finite loss or gradient norm, or if no parameter or
+      SAN running statistic moved.
+   c. The entry point: a 4-frame synthetic GTA split at 384x1280 written to
+      ``build/train_smoke/`` (the 8-column format), ``cli.train_edges.main``
+      for 1 epoch at batch 2 with the shipped augmentations and validation
+      on 2 frames; the checkpoint reloads bit-equal and a resume from it
+      starts at epoch 1 with the optimizer's step count restored.
 
-Prints one line per phase, the wall time, then the card's name and power
-limit, a JSON line of the kernels, and as its last line
+Prints one line per phase, each phase's wall time, then the card's name
+and power limit, a JSON line of the kernels, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failure exits nonzero; without a CUDA
 device it exits nonzero and prints no result.
 """
@@ -64,24 +86,32 @@ from torch.profiler import ProfilerActivity, profile
 
 from mindtheedge_tpu_torch import serve
 from mindtheedge_tpu_torch.cli.infer_edge_estimation import annotate_batch
-from mindtheedge_tpu_torch.cli import infer_edges
+from mindtheedge_tpu_torch.cli import infer_edges, train_edges
 from mindtheedge_tpu_torch.cli.infer_edges import infer_batch
-from mindtheedge_tpu_torch.models.packnet import SLIM_CHANNELS
+from mindtheedge_tpu_torch.config import get_cfg_defaults, parse_train_file
+from mindtheedge_tpu_torch.models.packnet import SLIM_CHANNELS, to_train_device
 from mindtheedge_tpu_torch.models.tasks import build_task
 from mindtheedge_tpu_torch.ops import edge_ops, wire
 from mindtheedge_tpu_torch.ops.cuda import build, nms_kernel
+from mindtheedge_tpu_torch.training.checkpoint import load_checkpoint
+from mindtheedge_tpu_torch.training.experiment import Experiment
+from mindtheedge_tpu_torch.training.train_step import create_train_state, make_train_step
 from tests.test_torch_annotate_cuda import (
     annotate_card_vs_cpu, random_frames, task_config)
 from tests.test_torch_nms_kernel import dyadic_patch, gaussian_blur, misaligned
+from tests.test_torch_train_cuda import train_step_card_vs_cpu
 
 KERNELS = ('nms_kernel',)
 B, H, W = 4, 384, 1280
-WARMUP, REQUESTS = 2, 8
+WARMUP, REQUESTS = 2, 5      # phases 4-6; cut from 8 when training joined
 DEE_SHAPES = ((1, 192, 640), (1, 96, 320), (1, 48, 160))   # annotation scales
 SCALES = 4                      # annotation scales of the DEE network
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12        # H100 SXM, fp32 outside the tensor cores
 NMS_FLOPS_PER_PX = 40           # separable Sobel-5 pair (32) + bucket tests
+TRAIN_CONFIG = 'configs/train_packnet_san_kitti_with_edges.yaml'
+TRAIN_B, TRAIN_WARMUP, TRAIN_STEPS = 3, 2, 10
+SMOKE_DIR = 'build/train_smoke'
 
 
 def check(ok, what):
@@ -517,6 +547,218 @@ def phase_infer(dev):
     return launches
 
 
+def phase_train_small(dev):
+    loss_h, loss_c, worst = train_step_card_vs_cpu(dev)
+    print(f'phase 7a train_step card vs cpu [2,64,96] (16,)*6: loss {loss_c} on '
+          f'the card, {loss_h} on the CPU; worst gradient error '
+          f'{worst["grad_vs_max"]:.3e} of its tensor\'s largest |gradient| '
+          f'(bound 1e-4); worst parameter error after the Adam step '
+          f'{worst["param_vs_lr"]:.3e} lr (bound 1e-2); SAN running stats '
+          f'within rtol 1e-4')
+
+
+def train_config():
+    """The shipped training config in strict fp32, random weights."""
+    cfg = get_cfg_defaults()
+    cfg.merge_from_file(TRAIN_CONFIG)
+    cfg.arch.precision = 'float32'
+    cfg.model.depth_net.checkpoint_path = ''
+    return cfg
+
+
+def blocky_scene(rng, b, h, w, dev):
+    """[b,h,w] depth in metres on the card: 30 m with 12 boxes of 5-25 m."""
+    depth = torch.full((b, h, w), 30.0, device=dev)
+    for i in range(b):
+        for _ in range(12):
+            y, x = rng.randint(0, h - h // 8), rng.randint(0, w - w // 8)
+            hh, ww = rng.randint(h // 16, h // 3), rng.randint(w // 16, w // 3)
+            depth[i, y:y + hh, x:x + ww] = float(rng.uniform(5.0, 25.0))
+    return depth
+
+
+def full_width_batch(dev, seed=0):
+    """A seeded synthetic training batch made on the card, NHWC: RGB shaded
+    by depth, LiDAR 95 % sparse, GT 75 % sparse, and at each of the 4
+    scales the depth edges (a step to the right or below) and the normals
+    (the Sobel-5 angle of the scene, as the DEE annotation decodes it)."""
+    rng = np.random.RandomState(seed)
+    gen = torch.Generator(dev).manual_seed(seed)
+    b, h, w = TRAIN_B, H, W
+    depth = blocky_scene(rng, b, h, w, dev)
+    shade = (depth / 40.0)[..., None]
+    batch = {'rgb': torch.clamp(shade + 0.2 * torch.rand(b, h, w, 3, device=dev,
+                                                        generator=gen), 0.0, 1.0)}
+    keep = lambda share: torch.rand(b, h, w, device=dev, generator=gen) < share
+    batch['input_depth'] = torch.where(keep(0.05), depth, 0.0)[..., None]
+    batch['depth'] = torch.where(keep(0.25), depth, 0.0)[..., None]
+    for s, key in enumerate(('', '_1', '_2', '_3')):
+        d = depth[:, ::2 ** s, ::2 ** s].contiguous()
+        edge = torch.zeros_like(d, dtype=torch.bool)
+        edge[:, :, :-1] |= d[:, :, 1:] != d[:, :, :-1]
+        edge[:, :-1] |= d[:, 1:] != d[:, :-1]
+        batch['edge' + key] = edge.float()[..., None]
+        batch['normal' + key] = edge_ops.decode_normal_png(
+            edge_ops.normals_angle_255(d))[..., None]
+    return batch
+
+
+def stage_ms(task, state, batch, gen):
+    """The forward, the loss, the backward and the optimizer step of one
+    training step, each timed alone by CUDA events between syncs (ms)."""
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
+    state.net.zero_grad(set_to_none=False)
+
+    def timed(i, fn):
+        torch.cuda.synchronize()
+        events[2 * i].record()
+        out = fn()
+        events[2 * i + 1].record()
+        torch.cuda.synchronize()
+        return out
+
+    out = timed(0, lambda: task.run_depth(batch, train=True, generator=gen))
+
+    def loss():          # SemiSupEdgeTask.train_loss after its forward
+        edge = task.depth_edges_loss_weight * task._edge_loss_all_scales(
+            out['inv_depths'], batch, None, is_grad=True, is_sigmoid=True)
+        return task.supervised_loss_weight * task._supervised(
+            out['inv_depths'], batch['depth']) + edge
+
+    total = timed(1, loss)
+    del out
+    timed(2, total.backward)
+    timed(3, state.optimizer.step)
+    names = ('forward', 'loss', 'backward', 'optimizer')
+    return {n: events[2 * i].elapsed_time(events[2 * i + 1]) for i, n in enumerate(names)}
+
+
+def phase_train_full(dev):
+    cfg = train_config()
+    task = build_task(cfg, device=dev)
+    net = to_train_device(task.depth_net, dev)
+    state = create_train_state(cfg, net)
+    step = make_train_step(task)
+    gen = torch.Generator(dev).manual_seed(cfg.arch.seed)
+    batch = full_width_batch(dev)
+    n_params = sum(p.numel() for p in net.parameters())
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(TRAIN_WARMUP):
+        step(state, batch, gen)
+    torch.cuda.synchronize()
+    tuning_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = [p.detach().clone() for p in net.parameters()]
+    stats_before = [b.clone() for n, b in net.named_buffers() if 'running' in n]
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(TRAIN_STEPS + 1)]
+    metrics = []
+    events[0].record()
+    for i in range(TRAIN_STEPS):
+        metrics.append(step(state, batch, gen))
+        events[i + 1].record()
+    events[-1].synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(TRAIN_STEPS)]
+    rows = [{k: float(v) for k, v in m.items()} for m in metrics]
+    for r in rows:
+        check(all(np.isfinite(v) for v in r.values()), f'non-finite training metrics {r}')
+    moved = sum(not torch.equal(p.detach(), q) for p, q in zip(net.parameters(), before))
+    stats_moved = sum(not torch.equal(b, a) for (n, b), a in zip(
+        ((n, b) for n, b in net.named_buffers() if 'running' in n), stats_before))
+    check(moved > 0 and stats_moved > 0,
+          f'{moved} parameter tensors and {stats_moved} running statistics moved')
+    mean_ms = float(np.mean(step_ms))
+    stages = stage_ms(task, state, batch, gen)
+    print(f'phase 7b train 384x1280 b{TRAIN_B} fp32 (TF32 off), {n_params} parameters, '
+          f'dropout {cfg.model.depth_net.dropout}, flip {cfg.model.loss.flip_lr_prob}: '
+          f'{TRAIN_STEPS} steps after {TRAIN_WARMUP} warm-up, {mean_ms:.3f} ms/step by '
+          f'CUDA events (min {min(step_ms):.3f}, max {max(step_ms):.3f}), '
+          f'{TRAIN_B * 1e3 / mean_ms:.3f} img/s, peak {peak / 2**30:.3f} GiB '
+          f'(warm-up with cuDNN autotuning {tuning_peak / 2**30:.3f} GiB); '
+          f'{moved} of {len(before)} parameter tensors and {stats_moved} of '
+          f'{len(stats_before)} SAN running statistics moved')
+    for i, r in enumerate(rows):
+        print(f'phase 7b step {i}: {step_ms[i]:.3f} ms, loss {r["loss"]:.6f}, edge '
+              f'{r["edge_loss"]:.6f}, supervised {r["supervised_loss"]:.6f}, '
+              f'grad_norm {r["grad_norm"]:.6f}')
+    total = sum(stages.values())
+    print('phase 7b where a training step goes (each part timed alone, ms): '
+          + ', '.join(f'{k} {v:.3f} ({100 * v / total:.1f} %)' for k, v in stages.items())
+          + f'; sum {total:.3f} vs {mean_ms:.3f} per step in the run')
+    return mean_ms, peak
+
+
+def write_split(root, n, h, w, seed=0):
+    """``n`` frames of a blocky scene in the GTA split format (rgb, uint16
+    depth, edges and normals with their ``_001..003`` scales, uint16
+    LiDAR), written with cv2 -> the split file."""
+    import cv2
+    import os
+    rng = np.random.RandomState(seed)
+    os.makedirs(root, exist_ok=True)
+    scenes = blocky_scene(rng, n, h, w, 'cpu').numpy()
+    lines = []
+    for i, depth in enumerate(scenes):
+        f = lambda tag: os.path.join(root, f'{i:06d}_{tag}.png')
+        rgb = np.clip(depth * 6 + rng.randn(h, w) * 8, 0, 255)
+        cv2.imwrite(f('rgb'), np.stack([rgb] * 3, -1).astype(np.uint8))
+        cv2.imwrite(f('depth'), (depth * 256).astype(np.uint16))
+        lidar = np.where(rng.rand(h, w) < 0.05, depth, 0.0)
+        cv2.imwrite(f('lidar'), (lidar * 256).astype(np.uint16))
+        edge = cv2.Canny((depth * 255 / 30).astype(np.uint8), 20, 40)
+        sx = cv2.Sobel(depth.astype(np.float64), cv2.CV_64F, 1, 0, ksize=5)
+        sy = cv2.Sobel(depth.astype(np.float64), cv2.CV_64F, 0, 1, ksize=5)
+        normal = ((np.arctan2(-sy, sx) * 180 / np.pi + 180) / 360 * 255).astype(np.uint8)
+        for s in range(4):
+            size = (w >> s, h >> s)
+            cv2.imwrite(f(f'edge_00{s}'), cv2.resize(edge, size, interpolation=cv2.INTER_NEAREST))
+            cv2.imwrite(f(f'normal_00{s}'), cv2.resize(normal, size))
+        lines.append(f'{f("rgb")} {f("depth")} {f("edge_000")} {f("lidar")} None None '
+                     f'None {f("normal_000")}\n')
+    path = os.path.join(root, 'split.txt')
+    with open(path, 'w') as fh:
+        fh.writelines(lines)
+    with open(os.path.join(root, 'val.txt'), 'w') as fh:
+        fh.writelines(lines[:2])
+    return path, os.path.join(root, 'val.txt')
+
+
+def phase_train_cli(dev):
+    import os
+    import shutil
+    shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    split, val = write_split(os.path.join(SMOKE_DIR, 'data'), 4, H, W)
+    cfg = train_config()
+    cfg.arch.max_epochs = 1
+    cfg.datasets.train.batch_size = 2
+    cfg.datasets.train.path, cfg.datasets.train.split = [''], [split]
+    cfg.datasets.validation.path, cfg.datasets.validation.split = [''], [val]
+    cfg.checkpoint.filepath = os.path.join(SMOKE_DIR, 'checkpoints')
+    yaml_path = os.path.join(SMOKE_DIR, 'train.yaml')
+    cfg.save_yaml(yaml_path)
+    t0 = time.perf_counter()
+    exp = train_edges.main([yaml_path], device=dev)
+    secs = time.perf_counter() - t0
+    ckpts = sorted(f for f in os.listdir(cfg.checkpoint.filepath) if f.endswith('.ckpt'))
+    check(len(ckpts) == 1, f'checkpoints written: {ckpts}')
+    path = os.path.join(cfg.checkpoint.filepath, ckpts[0])
+    ckpt = load_checkpoint(path)
+    own = exp.state.net.state_dict()
+    check(all(torch.equal(ckpt['state_dict'][f'model.depth_net.{k}'], v.cpu())
+              for k, v in own.items()) and len(own) == len(ckpt['state_dict']),
+          'the checkpoint does not reload bit-equal')
+    cfg2, resume = parse_train_file(yaml_path)
+    check(resume == path, f'resume picked {resume}')
+    state = Experiment(cfg2, resume_ckpt=resume, device=dev).initialize_state()
+    steps = {int(s['step']) for s in state.optimizer.state_dict()['state'].values()}
+    check(state.epoch == 1 and state.step == 2 and steps == {2},
+          f'resumed at epoch {state.epoch}, step {state.step}, Adam steps {steps}')
+    print(f'phase 7c train_edges.main {H}x{W}, 4 frames, batch 2, 1 epoch with '
+          f'validation on 2 frames: {secs:.1f} s; wrote {ckpts[0]}, reloads bit-equal; '
+          f'resume starts at epoch {state.epoch}, step {state.step}, Adam step count '
+          f'{steps.pop()}')
+
+
 def card_line():
     out = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
@@ -535,13 +777,28 @@ def main():
     t0 = time.perf_counter()
     print(f'torch {torch.__version__} cuda {torch.version.cuda} on '
           f'{torch.cuda.get_device_name(0)}')
-    phase_build()
-    px2, bad2, err2 = phase_kernel_vs_plain(dev)
-    phase_small_slice(dev)
-    launches4, prob, bad4, err4 = phase_serve(dev)
-    kernel_ms, plain_ms, bound_ms, bound_by = time_nms(prob)
-    launches5, px5, bad5, err5 = phase_annotate(dev, kernel_ms)
-    launches6 = phase_infer(dev)
+    walls = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - t
+        return out
+
+    timed('1', phase_build)
+    px2, bad2, err2 = timed('2', phase_kernel_vs_plain, dev)
+    timed('3', phase_small_slice, dev)
+    launches4, prob, bad4, err4 = timed('4', phase_serve, dev)
+    kernel_ms, plain_ms, bound_ms, bound_by = timed('nms timing', time_nms, prob)
+    launches5, px5, bad5, err5 = timed('5', phase_annotate, dev, kernel_ms)
+    launches6 = timed('6', phase_infer, dev)
+    nms_kernel.launches = 0
+    timed('7a', phase_train_small, dev)
+    timed('7b', phase_train_full, dev)
+    timed('7c', phase_train_cli, dev)
+    launches7 = nms_kernel.launches
+    check(launches7 == 0, f'NMS kernel launched {launches7} times on the training path')
+    print('phase wall times (s): ' + ', '.join(f'{k} {v:.1f}' for k, v in walls.items()))
     print(f'chip_smoke wall time {time.perf_counter() - t0:.1f} s')
     card = card_line()
     print(card)
@@ -549,9 +806,9 @@ def main():
         'name': 'nms_sobel5', 'route': 'cuda',
         'source': 'mindtheedge_tpu_torch/csrc/nms_kernel.cu',
         'replaces': 'mindtheedge_tpu/ops/pallas/nms_kernel.py:111',
-        'launches': launches4 + launches5 + launches6,
+        'launches': launches4 + launches5 + launches6 + launches7,
         'launches_by_path': {'serve': launches4, 'annotate': launches5,
-                             'infer': launches6},
+                             'infer': launches6, 'train': launches7},
         'max_abs_err': max(err2, err4, err5),
         'mismatched_px': bad2 + bad4 + bad5,
         'checked_px': px2 + prob.numel() + px5,

@@ -1,11 +1,12 @@
-"""Config system: counterpart of ``mindtheedge_tpu/config/__init__.py:15-41,
-81-102`` (``prep_dataset``, ``prepare_config``, ``parse_test_file``).
+"""Config system: counterpart of ``mindtheedge_tpu/config/__init__.py``
+(``prep_dataset``, ``prepare_config``, ``parse_train_file``,
+``parse_test_file``).
 
 Reference behaviour: ``packnet_code/packnet_sfm/utils/config.py:16-47,
-354-486``.  ``parse_train_file`` waits for the training slice (ROADMAP
-Slice C).
+209-297, 354-486``.
 """
 
+import os
 from datetime import datetime
 
 from mindtheedge_tpu_torch.config.defaults import get_cfg_defaults
@@ -41,6 +42,40 @@ def prepare_config(cfg):
     return cfg
 
 
+def parse_train_file(path, overrides=None):
+    """A training file (.yaml config, or .ckpt checkpoint to resume) ->
+    ``(config, checkpoint path to resume from or None)``
+    (``config/__init__.py:44-78``, reference ``utils/config.py:209-253``).
+
+    A yaml whose ``checkpoint.filepath`` directory already holds
+    checkpoints resumes from the newest of them (reference
+    ``utils/config.py:277-297``).
+    """
+    if not path.endswith(('.yaml', '.yml', '.ckpt')):
+        raise ValueError(f'Train file must be a .yaml config or a .ckpt checkpoint: {path}')
+    cfg = get_cfg_defaults()
+    if path.endswith('.ckpt'):
+        from mindtheedge_tpu_torch.training.checkpoint import load_checkpoint
+        cfg.merge_from_other_cfg(load_checkpoint(path)['config'])
+        if overrides:
+            cfg.merge_from_list(overrides)
+        return prepare_config(cfg), path
+
+    cfg.merge_from_file(path)
+    cfg.config = path
+    if overrides:
+        cfg.merge_from_list(overrides)
+    cfg = prepare_config(cfg)
+    resume_ckpt = None
+    ckpt_dir = cfg.checkpoint.filepath
+    if ckpt_dir and os.path.isdir(ckpt_dir):
+        ckpts = sorted((f for f in os.listdir(ckpt_dir) if f.endswith('.ckpt')),
+                       key=lambda f: os.path.getmtime(os.path.join(ckpt_dir, f)))
+        if ckpts:
+            resume_ckpt = os.path.join(ckpt_dir, ckpts[-1])
+    return cfg, resume_ckpt
+
+
 def parse_test_file(ckpt_path, yaml_path=None, overrides=None):
     """Parse a test checkpoint (+ optional yaml override).
 
@@ -68,4 +103,4 @@ def parse_test_file(ckpt_path, yaml_path=None, overrides=None):
 
 
 __all__ = ['ConfigNode', 'get_cfg_defaults', 'prepare_config',
-           'parse_test_file', 'prep_dataset']
+           'parse_train_file', 'parse_test_file', 'prep_dataset']

@@ -1,4 +1,4 @@
-"""PackNet-SAN depth network, eval forward: counterpart of
+"""PackNet-SAN depth network: counterpart of
 ``mindtheedge_tpu/models/packnet.py`` (reference ``PackNetSAN01.py``).
 
 NCHW inside; ``PackNetSAN.forward`` takes and returns NHWC like the JAX
@@ -28,29 +28,29 @@ NUM_3D_FEAT = 4
 class PackNetSlimEncoder(nn.Module):
     """Reference ``PackNetSlimEnc01``; returns (x5p, [skip1, x1p..x4p])."""
 
-    def __init__(self, channels=SLIM_CHANNELS, in_channels=3):
+    def __init__(self, channels=SLIM_CHANNELS, in_channels=3, dropout=None):
         super().__init__()
         ni, n1, n2, n3, n4, n5 = channels
         d = NUM_3D_FEAT
         self.pre_calc = ConvBlock(in_channels, ni, 5)
         self.conv1 = ConvBlock(ni, n1, 7)
         self.pack1 = PackLayerConv3d(n1, PACK_KERNEL[0], d=d)
-        self.conv2 = ResidualBlock(n1, n2, NUM_BLOCKS[0])
+        self.conv2 = ResidualBlock(n1, n2, NUM_BLOCKS[0], dropout=dropout)
         self.pack2 = PackLayerConv3d(n2, PACK_KERNEL[1], d=d)
-        self.conv3 = ResidualBlock(n2, n3, NUM_BLOCKS[1])
+        self.conv3 = ResidualBlock(n2, n3, NUM_BLOCKS[1], dropout=dropout)
         self.pack3 = PackLayerConv3d(n3, PACK_KERNEL[2], d=d)
-        self.conv4 = ResidualBlock(n3, n4, NUM_BLOCKS[2])
+        self.conv4 = ResidualBlock(n3, n4, NUM_BLOCKS[2], dropout=dropout)
         self.pack4 = PackLayerConv3d(n4, PACK_KERNEL[3], d=d)
-        self.conv5 = ResidualBlock(n4, n5, NUM_BLOCKS[3])
+        self.conv5 = ResidualBlock(n4, n5, NUM_BLOCKS[3], dropout=dropout)
         self.pack5 = PackLayerConv3d(n5, PACK_KERNEL[4], d=d)
 
-    def forward(self, rgb):
+    def forward(self, rgb, generator=None):
         x = self.pre_calc(rgb)
         x1p = self.pack1(self.conv1(x))
-        x2p = self.pack2(self.conv2(x1p))
-        x3p = self.pack3(self.conv3(x2p))
-        x4p = self.pack4(self.conv4(x3p))
-        x5p = self.pack5(self.conv5(x4p))
+        x2p = self.pack2(self.conv2(x1p, generator))
+        x3p = self.pack3(self.conv3(x2p, generator))
+        x4p = self.pack4(self.conv4(x3p, generator))
+        x5p = self.pack5(self.conv5(x4p, generator))
         return x5p, [x, x1p, x2p, x3p, x4p]
 
 
@@ -95,20 +95,34 @@ class PackNetDecoder(nn.Module):
 
 
 class PackNetSAN(nn.Module):
-    """PackNet-SAN version 1A, eval contract (``packnet.py:245-255``).
+    """PackNet-SAN version 1A (``packnet.py:181-272``).
 
-    ``forward(rgb [B,H,W,3], input_depth [B,H,W,1] or None)`` ->
-    ``{'inv_depths': [4 x [B,h,w,1]]}``, NHWC.  With LiDAR, each skip level
-    is fused as ``skip * weight[i] + san[i] + bias[i]`` (``:234-243``).
-    The train contract waits for a later slice: the module raises in
-    training mode.  ``version`` and ``input_channels`` are the config's
-    (``tasks.build_depth_net``); only 1A on RGB is ported, and the
-    4-channel ``rgb_edge`` input and versions other than 1A raise
-    (ROADMAP Queue 1 item 10).
+    ``forward(rgb [B,H,W,3], input_depth [B,H,W,1] or None, generator)``,
+    NHWC in and out:
+
+    * eval: one pass -> ``{'inv_depths': [4 x [B,h,w,1]]}``.  With LiDAR,
+      each skip level is fused as ``skip * weight[i] + san[i] + bias[i]``
+      (``:234-243``).
+    * training without LiDAR: the RGB pass -> ``{'inv_depths'}``.
+    * training with LiDAR: the RGB pass, then the RGBD pass ->
+      ``{'inv_depths', 'inv_depths_rgbd', 'depth_loss'}``, where
+      ``depth_loss`` is the mean over the 6 skip levels of the mean squared
+      difference between the passes' features, the RGBD side detached.  The
+      RGBD pass is the only one that runs the SAN ladder, so it is the one
+      that updates its running statistics, once per step.
+
+    ``generator`` feeds the encoder's dropout draws in training.
+    ``version`` and ``input_channels`` are the config's
+    (``tasks.build_depth_net``); only 1A on RGB is ported: the 4-channel
+    ``rgb_edge`` input and versions other than 1A raise (ROADMAP Queue 1
+    item 10), and ``remat`` raises (item 23).  The ``freeze_*`` flags are
+    kept here for the optimizer, which leaves those parameters out
+    (``training/optimizer.py``), as the JAX package does.
     """
 
     def __init__(self, channels=SLIM_CHANNELS, version='1A', input_channels=3,
-                 output_channels=1):
+                 output_channels=1, dropout=None, remat=False,
+                 freeze_encoder=False, freeze_decoder=False, freeze_san=False):
         super().__init__()
         if version != '1A':
             raise NotImplementedError(
@@ -118,30 +132,47 @@ class PackNetSAN(nn.Module):
             raise NotImplementedError(
                 f'PackNetSAN with input_channels={input_channels} (rgb_edge '
                 'input) waits for ROADMAP Queue 1 item 10')
-        self.encoder = PackNetSlimEncoder(channels)
+        if remat:
+            raise NotImplementedError(
+                f'PackNetSAN remat={remat!r} (activation recomputation) waits '
+                'for ROADMAP Queue 1 item 23')
+        self.encoder = PackNetSlimEncoder(channels, dropout=dropout)
         self.decoder = PackNetDecoder(channels, output_channels)
         self.mconvs = SparseDepthEncoder(tuple(channels[1:]))
         self.weight = nn.Parameter(torch.ones(5))
         self.bias = nn.Parameter(torch.zeros(5))
+        self.freeze_encoder = freeze_encoder
+        self.freeze_decoder = freeze_decoder
+        self.freeze_san = freeze_san
 
-    def run_network(self, rgb, input_depth=None):
-        """NCHW: rgb [B,3,H,W], input_depth [B,1,H,W] -> 4 inverse depths."""
-        x5p, skips = self.encoder(rgb)
+    def run_network(self, rgb, input_depth=None, generator=None):
+        """NCHW: rgb [B,3,H,W], input_depth [B,1,H,W] -> (4 inverse depths,
+        the 6 fused skip features)."""
+        x5p, skips = self.encoder(rgb, generator)
         if input_depth is not None:
             san = self.mconvs(input_depth)
             w, b = self.weight, self.bias
             for i in range(4):
                 skips[i + 1] = skips[i + 1] * w[i] + san[i] + b[i]
             x5p = x5p * w[4] + san[4] + b[4]
-        return self.decoder(x5p, skips)
+        return self.decoder(x5p, skips), skips + [x5p]
 
-    def forward(self, rgb, input_depth=None):
-        if self.training:
-            raise NotImplementedError(
-                'PackNetSAN is ported for eval only; call .eval() first')
-        nchw = [] if input_depth is None else [input_depth.permute(0, 3, 1, 2)]
-        inv_depths = self.run_network(rgb.permute(0, 3, 1, 2), *nchw)
-        return {'inv_depths': [t.permute(0, 2, 3, 1) for t in inv_depths]}
+    def forward(self, rgb, input_depth=None, generator=None):
+        rgb = rgb.permute(0, 3, 1, 2)
+        lidar = None if input_depth is None else input_depth.permute(0, 3, 1, 2)
+        nhwc = lambda ts: [t.permute(0, 2, 3, 1) for t in ts]
+        if not self.training:
+            return {'inv_depths': nhwc(self.run_network(rgb, lidar)[0])}
+        inv_rgb, feat_rgb = self.run_network(rgb, None, generator)
+        out = {'inv_depths': nhwc(inv_rgb)}
+        if lidar is None:
+            return out
+        inv_rgbd, feat_rgbd = self.run_network(rgb, lidar, generator)
+        out['inv_depths_rgbd'] = nhwc(inv_rgbd)
+        out['depth_loss'] = sum(
+            torch.mean((d.detach().float() - r.float()) ** 2)
+            for d, r in zip(feat_rgbd, feat_rgb)) / len(feat_rgbd)
+        return out
 
 
 def init_weights(model, seed=0):
@@ -164,7 +195,7 @@ def init_weights(model, seed=0):
 
 def to_device(model, device=None):
     """``model`` in eval mode on ``device`` (``None`` -> CUDA, which must be
-    present).  Every entry point builds its model through here.
+    present).  Every inference entry point builds its model through here.
 
     On CUDA this turns on cuDNN's autotuner for the process
     (``torch.backends.cudnn.benchmark``): cuDNN's heuristics pick an
@@ -176,3 +207,16 @@ def to_device(model, device=None):
     if device.type == 'cuda':
         torch.backends.cudnn.benchmark = True
     return model.to(device).eval()
+
+
+def to_train_device(model, device=None):
+    """``model`` in training mode on ``device``, for the training entry
+    points: as :func:`to_device`, cuDNN's autotuner on, and TF32 off in
+    convs and matmuls for the process, since training runs in strict fp32
+    (``arch.precision: float32``; bf16 waits for ROADMAP item 9)."""
+    device = resolve_device(device)
+    if device.type == 'cuda':
+        torch.backends.cudnn.benchmark = True
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return model.to(device).train()

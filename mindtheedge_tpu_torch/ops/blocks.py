@@ -40,30 +40,51 @@ class ConvBlock(nn.Module):
         return F.elu(self.normalize(self.conv_base(x)))
 
 
+def channel_dropout(x, rate, generator=None):
+    """Dropout2d of [B,C,H,W]: whole channels drop with probability
+    ``rate``, the kept ones are divided by 1 - rate (flax ``nn.Dropout`` with
+    ``broadcast_dims=(1, 2)``, ``blocks.py:517-520``).  The keep mask is one
+    draw per (image, channel) from ``generator``."""
+    keep = torch.rand(x.shape[0], x.shape[1], 1, 1, device=x.device,
+                      generator=generator) >= rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
 class ResidualConv(nn.Module):
     """Two ConvBlocks plus a 1x1 shortcut; GroupNorm + ELU of the sum
-    (``blocks.py:510-524``).  Eval only: the shortcut's Dropout2d is the
-    identity there."""
+    (``blocks.py:510-524``).  In training, ``dropout`` drops whole channels
+    of the shortcut (:func:`channel_dropout`); in eval it does nothing."""
 
-    def __init__(self, in_channels, out_channels, stride=1):
+    def __init__(self, in_channels, out_channels, stride=1, dropout=None):
         super().__init__()
         self.conv1 = ConvBlock(in_channels, out_channels, 3, stride)
         self.conv2 = ConvBlock(out_channels, out_channels, 3, 1)
         self.conv3 = nn.Conv2d(in_channels, out_channels, 1, stride)
         self.normalize = GroupNorm(out_channels)
+        self.dropout = dropout
 
-    def forward(self, x):
-        return F.elu(self.normalize(self.conv2(self.conv1(x)) + self.conv3(x)))
+    def forward(self, x, generator=None):
+        shortcut = self.conv3(x)
+        if self.dropout and self.training:
+            shortcut = channel_dropout(shortcut, self.dropout, generator)
+        return F.elu(self.normalize(self.conv2(self.conv1(x)) + shortcut))
 
 
 class ResidualBlock(nn.Sequential):
-    """A stack of ResidualConvs; the first may change channels and stride."""
+    """A stack of ResidualConvs; the first may change channels and stride.
+    ``generator`` feeds every block's dropout draws."""
 
-    def __init__(self, in_channels, out_channels, num_blocks, stride=1):
+    def __init__(self, in_channels, out_channels, num_blocks, stride=1,
+                 dropout=None):
         super().__init__(*[
             ResidualConv(in_channels if i == 0 else out_channels, out_channels,
-                         stride if i == 0 else 1)
+                         stride if i == 0 else 1, dropout)
             for i in range(num_blocks)])
+
+    def forward(self, x, generator=None):
+        for block in self:
+            x = block(x, generator)
+        return x
 
 
 class InvDepthHead(nn.Module):

@@ -1,7 +1,8 @@
 """Edge ops in plain PyTorch: counterpart of ``mindtheedge_tpu/ops/edge_ops.py``
 (reference ``utils/tools.py:9-99``, ``infer_edge_estimation.py:194-199``):
-Sobel-5, direction-quantised NMS, the Sobel-angle normal map, hysteresis and
-isolated-edge removal.  These are XLA in the JAX package, not Pallas; only
+Sobel-5, direction-quantised NMS, the Sobel-angle normal map, hysteresis,
+isolated-edge removal, and the Sobel-3 kernels of the training loss
+(``SOBEL3_*``, ``conv2_single``).  These are XLA in the JAX package, not Pallas; only
 the NMS has a hand-written CUDA kernel (``csrc/nms_kernel.cu``).
 
 ``non_max_suppression`` here is the plain version of the CUDA kernel
@@ -21,6 +22,12 @@ import torch.nn.functional as F
 SMOOTH5 = (1.0, 4.0, 6.0, 4.0, 1.0)
 DERIV5 = (-1.0, -2.0, 0.0, 2.0, 1.0)
 CHECK_EVERY = 4     # hysteresis dilation steps between host checks
+
+# 3x3 Sobel kernels as in the reference GradLayer (grad_loss.py:20-31)
+SOBEL3_V = ((-1., -2., -1.), (0., 0., 0.), (1., 2., 1.))
+SOBEL3_H = ((-1., 0., 1.), (-2., 0., 2.), (-1., 0., 1.))
+SOBEL3_LR = ((-2., -1., 0.), (-1., 0., 1.), (0., 1., 2.))
+SOBEL3_RL = ((0., 1., 2.), (-1., 0., 1.), (-2., -1., 0.))
 
 
 def _reflect101_pad(img, p):
@@ -49,6 +56,17 @@ def _batched(img):
     if img.ndim not in (2, 3):
         raise ValueError(f'expected [H,W] or [B,H,W], got {tuple(img.shape)}')
     return img[None] if img.ndim == 2 else img
+
+
+def conv2_single(img, kernel, reflect=True):
+    """2D correlation of [H,W] or [B,H,W] with a fixed [k,k] ``kernel``
+    (``edge_ops.py:44-63``), on a reflect-101 pad or, with ``reflect``
+    False, a zero pad; same shape out."""
+    x = _batched(img)
+    k = torch.as_tensor(kernel, dtype=x.dtype, device=x.device)
+    p = k.shape[0] // 2
+    xp = _reflect101_pad(x, p) if reflect else F.pad(x, (p, p, p, p))
+    return F.conv2d(xp[:, None], k[None, None])[:, 0].reshape(img.shape)
 
 
 def sobel5_x(img):

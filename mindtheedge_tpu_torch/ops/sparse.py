@@ -1,4 +1,4 @@
-"""Masked-dense SAN ladder, NCHW, eval path: counterpart of
+"""Masked-dense SAN ladder, NCHW: counterpart of
 ``mindtheedge_tpu/ops/sparse.py``.
 
 The sparse LiDAR branch stays dense and carries an activity mask, as the
@@ -32,9 +32,18 @@ def masked_max_pool_3x3_s2(x, mask):
 
 
 class MaskedBatchNorm(nn.Module):
-    """Sparse batch norm in eval: running statistics, output re-zeroed at
-    inactive sites (``sparse.py:240-248``).  Holds a ``BatchNorm1d`` as
-    ``bn`` so the keys match the reference ``MinkowskiBatchNorm``."""
+    """Sparse batch norm (``sparse.py:185-248``), output re-zeroed at
+    inactive sites.  Holds a ``BatchNorm1d`` as ``bn`` so the keys match the
+    reference ``MinkowskiBatchNorm``; its statistics are computed here, not
+    by ``BatchNorm1d``.
+
+    In training the mean and the *biased* variance run over the active
+    sites only, with ``count = max(mask.sum(), 1)``, and gradients flow
+    through both; the running statistics decay by ``DECAY`` (torch momentum
+    0.1).  In eval the running statistics normalise.
+    """
+
+    DECAY = 0.9
 
     def __init__(self, num_features):
         super().__init__()
@@ -42,9 +51,20 @@ class MaskedBatchNorm(nn.Module):
 
     def forward(self, x, mask):
         bn = self.bn
-        inv = torch.rsqrt(bn.running_var + bn.eps)
+        if self.training:
+            xf = x.float()
+            count = torch.clamp(mask.float().sum(), min=1.0)
+            mean = (xf * mask).sum((0, 2, 3)) / count
+            var = ((xf - mean[:, None, None]) ** 2 * mask).sum((0, 2, 3)) / count
+            with torch.no_grad():
+                bn.running_mean.mul_(self.DECAY).add_(mean, alpha=1 - self.DECAY)
+                bn.running_var.mul_(self.DECAY).add_(var, alpha=1 - self.DECAY)
+                bn.num_batches_tracked.add_(1)
+        else:
+            mean, var = bn.running_mean, bn.running_var
+        inv = torch.rsqrt(var + bn.eps)
         gain = inv * bn.weight
-        off = bn.bias - bn.running_mean * inv * bn.weight
+        off = bn.bias - mean * inv * bn.weight
         y = x.float() * gain[:, None, None] + off[:, None, None]
         return (y * mask).to(x.dtype)
 

@@ -1,5 +1,5 @@
-"""Checkpoint loading: counterpart of ``mindtheedge_tpu/training/checkpoint.py:
-47-77`` (``load_checkpoint``, ``restore_params``) for the depth network.
+"""Checkpoints: counterpart of ``mindtheedge_tpu/training/checkpoint.py``
+(reference ``models/model_checkpoint.py``).
 
 ``load_checkpoint(path)`` reads two formats:
 
@@ -17,10 +17,23 @@
 ``restore_depth_net(model, ckpt)`` loads every entry whose name and shape
 match the port's model and prints ``Restored n/total params`` as
 ``restore_params`` does.
+
+The save side (``checkpoint.py:27-45, 109-210``): ``save_checkpoint``
+writes format (b), a ``torch.save`` file whose ``state_dict`` holds the
+reference names under ``model.depth_net.``, beside ``optimizer``,
+``scheduler``, ``epoch`` (the index of the epoch to run next),
+``global_step``, ``config`` and ``metrics``.  ``ModelCheckpoint`` names the
+files ``epoch=NN[_f1=...][_<monitor>=...].ckpt`` with the ``b.ckpt``
+collision suffix, keeps the top k and snapshots the port's code beside
+them.  ``restore_train_state`` resumes from such a file.
 """
 
+import os
 import pickle
+import tarfile
 import zipfile
+
+import numpy as np
 
 import torch
 
@@ -98,3 +111,111 @@ def restore_depth_net(model, ckpt):
     names = [name for name, _ in model.named_parameters()]
     n = sum(name in loaded for name in names)
     print(f'Restored {n}/{len(names)} params')
+
+
+def save_checkpoint(path, config, state, metrics=None):
+    """Write ``state`` (a ``training.state.TrainState``) to ``path``
+    atomically, through a temporary file."""
+    os.makedirs(os.path.dirname(path) or '.', exist_ok=True)
+    payload = {
+        'config': config.to_dict() if hasattr(config, 'to_dict') else dict(config),
+        'epoch': int(state.epoch),
+        'global_step': int(state.step),
+        'state_dict': {f'model.depth_net.{k}': v.detach().cpu()
+                       for k, v in state.net.state_dict().items()},
+        'optimizer': state.optimizer.state_dict(),
+        'scheduler': state.scheduler.state_dict(),
+        'metrics': {k: float(v) for k, v in (metrics or {}).items()},
+        'format_version': 1,
+    }
+    tmp = path + '.tmp'
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def restore_train_state(state, ckpt):
+    """Resume ``state`` from a checkpoint that ``save_checkpoint`` wrote:
+    the network (strictly), the optimizer's moments and step counts, the
+    scheduler's position, ``epoch`` and ``step`` (``experiment.py:150-178``)."""
+    state.net.load_state_dict(depth_state_dict(ckpt))
+    state.optimizer.load_state_dict(ckpt['optimizer'])
+    state.scheduler.load_state_dict(ckpt['scheduler'])
+    state.epoch = int(ckpt['epoch'])
+    state.step = int(ckpt['global_step'])
+    return state
+
+
+class ModelCheckpoint:
+    """Top-k checkpoint manager (``checkpoint.py:109-210``, reference
+    ``model_checkpoint.py``); this process is the one writer.  The S3 sync
+    (``s3_path``) waits for ROADMAP Queue 1 item 25."""
+
+    def __init__(self, filepath, monitor='loss', save_top_k=5, mode='auto',
+                 save_freq=5, s3_path='', yaml_path=''):
+        if s3_path:
+            raise NotImplementedError(
+                f'checkpoint.s3_path {s3_path!r}: the S3 sync waits for '
+                'ROADMAP Queue 1 item 25')
+        self.dirpath = filepath
+        self.monitor = monitor
+        self.save_top_k = save_top_k
+        self.save_freq = save_freq
+        if mode == 'auto':
+            # auto min/max by metric name (model_checkpoint.py:44-55)
+            mode = 'max' if any(k in monitor for k in
+                                ('acc', 'a1', 'a2', 'a3', 'f1', 'precision',
+                                 'recall', 'auc')) else 'min'
+        self.mode = mode
+        self.best = []   # (metric, path, epoch)
+        os.makedirs(self.dirpath or '.', exist_ok=True)
+        # the run's yaml beside the checkpoints (model_checkpoint.py:62-64)
+        if yaml_path and os.path.isfile(yaml_path):
+            import shutil
+            shutil.copy(yaml_path,
+                        os.path.join(self.dirpath, os.path.basename(yaml_path)))
+        self._snapshot_code()
+
+    def _snapshot_code(self):
+        """The port's code, tarred next to the checkpoints
+        (model_checkpoint.py:13-22)."""
+        package = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        with tarfile.open(os.path.join(self.dirpath, 'code.tar.gz'), 'w:gz') as tar:
+            tar.add(package, arcname=os.path.basename(package),
+                    filter=lambda t: None if '__pycache__' in t.name else t)
+
+    def _filename(self, epoch, metrics):
+        parts = [f'epoch={epoch:02d}']
+        if metrics:
+            prec = [v for k, v in metrics.items() if 'precision' in k]
+            rec = [v for k, v in metrics.items() if 'recall' in k]
+            if prec and rec:
+                # edge-F1 in filenames (model_checkpoint.py:125-149)
+                p, r = float(np.mean(prec)), float(np.mean(rec))
+                f1 = 2 * p * r / max(p + r, 1e-12)
+                parts.append(f'f1={f1:.4f}')
+            if self.monitor in metrics:
+                parts.append(f'{self.monitor.replace("/", "-")}='
+                             f'{float(metrics[self.monitor]):.4f}')
+        path = os.path.join(self.dirpath, '_'.join(parts) + '.ckpt')
+        while os.path.exists(path):   # collision-avoidance (ref :173-175)
+            path = path[:-5] + 'b.ckpt'
+        return path
+
+    def check_and_save(self, config, state, metrics):
+        epoch = int(state.epoch)
+        path = self._filename(epoch, metrics)
+        save_checkpoint(path, config, state, metrics)
+        value = float(metrics.get(self.monitor, np.nan)) if metrics else np.nan
+        self.best.append((value, path, epoch))
+        if self.save_top_k and self.save_top_k > 0 and not np.isnan(value):
+            ranked = sorted((b for b in self.best if not np.isnan(b[0])),
+                            key=lambda t: t[0], reverse=self.mode == 'max')
+            for _, stale, stale_epoch in ranked[self.save_top_k:]:
+                # retention keyed on the STALE checkpoint's own epoch
+                # (model_checkpoint.py:184-191), never the current one
+                if os.path.exists(stale) and stale != path \
+                        and stale_epoch % max(self.save_freq, 1) != 0:
+                    os.remove(stale)
+                    self.best = [b for b in self.best if b[1] != stale]
+        return path

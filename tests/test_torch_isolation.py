@@ -24,7 +24,13 @@ def _import_all_with_blocked(blocked):
     names = [m.name for m in pkgutil.walk_packages(
         [str(PACKAGE)], prefix='mindtheedge_tpu_torch.')]
     for name in ('serve', 'cli.infer_edges', 'cli.infer_edge_estimation',
-                 'config', 'data.readers', 'models.tasks', 'training.checkpoint'):
+                 'config', 'data.readers', 'models.tasks', 'training.checkpoint',
+                 'cli.train_edges', 'training.experiment', 'training.optimizer',
+                 'training.train_step', 'training.state', 'training.trainer',
+                 'losses.grad_loss', 'losses.supervised', 'losses.loss_base',
+                 'models.model_utils', 'utils.image', 'utils.profiling',
+                 'utils.wandb_logger', 'data.datasets', 'data.loader',
+                 'data.transforms', 'evaluation.edge_metrics', 'evaluation.chamfer'):
         assert f'mindtheedge_tpu_torch.{name}' in names
     code = ("import sys, importlib\n"
             f"for b in {list(blocked)!r}:\n"

@@ -138,6 +138,7 @@ def test_unported_options_raise():
     for key, value, item in (('model.depth_net.input_channels', 4, 'item 10'),
                              ('model.depth_net.version', '1B', 'item 10'),
                              ('model.depth_net.name', 'PackNet01', 'item 10'),
+                             ('model.depth_net.remat', True, 'item 23'),
                              ('arch.precision', 'bfloat16', 'item 9')):
         bad = cfg.clone()
         bad.merge_from_list([key, value])
@@ -145,11 +146,16 @@ def test_unported_options_raise():
             tasks.build_task(bad, device='cpu')
     bad = cfg.clone()
     bad.model.name = 'SelfSupModel'
-    with pytest.raises(KeyError, match='Slice C'):
+    with pytest.raises(KeyError, match='items 16 and 22'):
         tasks.build_task(bad, device='cpu')
+    # the default supervised_loss_weight 0.9 needs the photometric loss
     task = tasks.build_task(cfg, device='cpu')
-    with pytest.raises(NotImplementedError, match='Slice C'):
+    with pytest.raises(NotImplementedError, match='item 16'):
         task.train_loss({})
+    dee = cfg.clone()
+    dee.model.name = 'EdgeEstimationLIDARModel'
+    with pytest.raises(NotImplementedError, match='item 21'):
+        tasks.build_task(dee, device='cpu').train_loss({})
 
 
 def test_build_task_without_cuda_raises(monkeypatch, tmp_path):
