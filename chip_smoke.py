@@ -58,7 +58,7 @@ Run from the repository root, on a machine with one CUDA card and nvcc.
       lr 1e-4), random weights from its seed, one seeded synthetic batch
       made on the card (batch 3, 384x1280, a blocky depth scene, LiDAR 95 %
       sparse, GT 75 % sparse, edges and normals at the 4 scales): 2 warm-up
-      steps (cuDNN's autotuner), 10 timed by CUDA events, then the
+      steps (cuDNN's autotuner), 5 timed by CUDA events, then the
       forward, the loss, the backward and the optimizer each timed alone.
       Fails on a non-finite loss or gradient norm, or if no parameter or
       SAN running statistic moved.
@@ -67,6 +67,31 @@ Run from the repository root, on a machine with one CUDA card and nvcc.
       for 1 epoch at batch 2 with the shipped augmentations and validation
       on 2 frames; the checkpoint reloads bit-equal and a resume from it
       starts at epoch 1 with the optimizer's step count restored.
+8. The rest of the training family (no kernel on these paths either: the
+   NMS kernel must launch 0 times in each).
+   a. One ``train_step`` card vs CPU at [2,64,96], channels (16,)*6, as 7a,
+      of ``EdgeEstimationLIDARModel`` (DEE), ``SemiSupEdgeCompletionModel``
+      and ``SemiSupModel`` at ``supervised_loss_weight`` 0.5 with
+      ``PoseNet`` and one back and one forward context image
+      (``tests/test_torch_train_cuda.py``); and the photometric loss, card
+      vs CPU, its value and its gradients.
+   b. DEE training at full width: ``EdgeEstimationLIDARModel`` on the
+      network and batch of 7b (LiDAR on, so both passes feed the loss; all
+      4 edge scales): 2 warm-up steps, 5 timed, the parts timed alone,
+      peak memory.
+   c. Self-supervised training at full width: the shipped training config
+      at ``supervised_loss_weight`` 0.9 with ``PoseNet``, one back and one
+      forward context, batch 3, 384x1280; 7b's batch plus two context
+      frames (the scene shifted by 4 and -4 pixels), their originals and
+      KITTI intrinsics: as 8b, and the pose network and the photometric
+      loss each timed alone.
+   d. The entry point on KITTI: a 6-frame synthetic KITTI raw tree at
+      96x320 written to ``build/train_smoke_kitti/`` by
+      ``tests/test_torch_train_cuda.write_kitti_tree``, then
+      ``cli.train_edges.main`` for 1 epoch of ``SemiSupModel`` with
+      ``PoseNet`` at batch 2 through
+      ``KITTIDataset`` (4 frames with both context frames) and validation;
+      the checkpoint holds the pose network and reloads bit-equal.
 
 Prints one line per phase, each phase's wall time, then the card's name
 and power limit, a JSON line of the kernels, and as its last line
@@ -98,8 +123,10 @@ from mindtheedge_tpu_torch.training.experiment import Experiment
 from mindtheedge_tpu_torch.training.train_step import create_train_state, make_train_step
 from tests.test_torch_annotate_cuda import (
     annotate_card_vs_cpu, random_frames, task_config)
+from tests.test_torch_train_cuda import write_kitti_tree
 from tests.test_torch_nms_kernel import dyadic_patch, gaussian_blur, misaligned
-from tests.test_torch_train_cuda import train_step_card_vs_cpu
+from tests.test_torch_train_cuda import (
+    TASKS, kitti_intrinsics, photometric_card_vs_cpu, train_step_card_vs_cpu)
 
 KERNELS = ('nms_kernel',)
 B, H, W = 4, 384, 1280
@@ -110,8 +137,10 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12        # H100 SXM, fp32 outside the tensor cores
 NMS_FLOPS_PER_PX = 40           # separable Sobel-5 pair (32) + bucket tests
 TRAIN_CONFIG = 'configs/train_packnet_san_kitti_with_edges.yaml'
-TRAIN_B, TRAIN_WARMUP, TRAIN_STEPS = 3, 2, 10
+TRAIN_B, TRAIN_WARMUP, TRAIN_STEPS = 3, 2, 5   # 10 steps until phase 8 joined
 SMOKE_DIR = 'build/train_smoke'
+KITTI_DIR = 'build/train_smoke_kitti'
+KITTI_H, KITTI_W = 96, 320
 
 
 def check(ok, what):
@@ -605,9 +634,12 @@ def full_width_batch(dev, seed=0):
 
 def stage_ms(task, state, batch, gen):
     """The forward, the loss, the backward and the optimizer step of one
-    training step, each timed alone by CUDA events between syncs (ms)."""
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
-    state.net.zero_grad(set_to_none=False)
+    training step, each timed alone by CUDA events between syncs (ms); for
+    a task with a pose network, then the pose network's forward and the
+    photometric loss (pose network included) each alone."""
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(12)]
+    for net in state.networks():
+        net.zero_grad(set_to_none=False)
 
     def timed(i, fn):
         torch.cuda.synchronize()
@@ -617,39 +649,39 @@ def stage_ms(task, state, batch, gen):
         torch.cuda.synchronize()
         return out
 
+    batch = task.prep_batch(batch)
     out = timed(0, lambda: task.run_depth(batch, train=True, generator=gen))
-
-    def loss():          # SemiSupEdgeTask.train_loss after its forward
-        edge = task.depth_edges_loss_weight * task._edge_loss_all_scales(
-            out['inv_depths'], batch, None, is_grad=True, is_sigmoid=True)
-        return task.supervised_loss_weight * task._supervised(
-            out['inv_depths'], batch['depth']) + edge
-
-    total = timed(1, loss)
+    total, _ = timed(1, lambda: task.losses(batch, out))
+    names = ['forward', 'loss', 'backward', 'optimizer']
+    if task.pose_net is not None:
+        timed(4, lambda: task.run_pose(batch))
+        timed(5, lambda: task._self_sup_loss(batch, out, task.run_pose(batch)))
+        names += ['pose net', 'photometric loss']
     del out
     timed(2, total.backward)
     timed(3, state.optimizer.step)
-    names = ('forward', 'loss', 'backward', 'optimizer')
     return {n: events[2 * i].elapsed_time(events[2 * i + 1]) for i, n in enumerate(names)}
 
 
-def phase_train_full(dev):
-    cfg = train_config()
+def train_full(dev, cfg, batch, label):
+    """``TRAIN_WARMUP`` + ``TRAIN_STEPS`` full-width training steps of the
+    task of ``cfg`` on ``batch`` -> (mean ms per step, peak bytes, rows of
+    metrics, the step's parts timed alone, a summary line)."""
     task = build_task(cfg, device=dev)
     net = to_train_device(task.depth_net, dev)
-    state = create_train_state(cfg, net)
+    state = create_train_state(cfg, net, pose_net=task.pose_net)
     step = make_train_step(task)
     gen = torch.Generator(dev).manual_seed(cfg.arch.seed)
-    batch = full_width_batch(dev)
-    n_params = sum(p.numel() for p in net.parameters())
+    params = state.parameters()
     torch.cuda.reset_peak_memory_stats()
     for _ in range(TRAIN_WARMUP):
         step(state, batch, gen)
     torch.cuda.synchronize()
     tuning_peak = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    before = [p.detach().clone() for p in net.parameters()]
-    stats_before = [b.clone() for n, b in net.named_buffers() if 'running' in n]
+    before = [p.detach().clone() for p in params]
+    running = lambda: [b for n in state.networks() for k, b in n.named_buffers() if 'running' in k]
+    stats_before = [b.clone() for b in running()]
     events = [torch.cuda.Event(enable_timing=True) for _ in range(TRAIN_STEPS + 1)]
     metrics = []
     events[0].record()
@@ -661,31 +693,116 @@ def phase_train_full(dev):
     step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(TRAIN_STEPS)]
     rows = [{k: float(v) for k, v in m.items()} for m in metrics]
     for r in rows:
-        check(all(np.isfinite(v) for v in r.values()), f'non-finite training metrics {r}')
-    moved = sum(not torch.equal(p.detach(), q) for p, q in zip(net.parameters(), before))
-    stats_moved = sum(not torch.equal(b, a) for (n, b), a in zip(
-        ((n, b) for n, b in net.named_buffers() if 'running' in n), stats_before))
-    check(moved > 0 and stats_moved > 0,
-          f'{moved} parameter tensors and {stats_moved} running statistics moved')
+        check(all(np.isfinite(v) for v in r.values()), f'{label}: non-finite metrics {r}')
+    moved = sum(not torch.equal(p.detach(), q) for p, q in zip(params, before))
+    stats_moved = sum(not torch.equal(b, a) for b, a in zip(running(), stats_before))
+    check(moved > 0 and (stats_moved > 0 or not stats_before),
+          f'{label}: {moved} parameter tensors and {stats_moved} running statistics moved')
     mean_ms = float(np.mean(step_ms))
     stages = stage_ms(task, state, batch, gen)
-    print(f'phase 7b train 384x1280 b{TRAIN_B} fp32 (TF32 off), {n_params} parameters, '
-          f'dropout {cfg.model.depth_net.dropout}, flip {cfg.model.loss.flip_lr_prob}: '
-          f'{TRAIN_STEPS} steps after {TRAIN_WARMUP} warm-up, {mean_ms:.3f} ms/step by '
-          f'CUDA events (min {min(step_ms):.3f}, max {max(step_ms):.3f}), '
-          f'{TRAIN_B * 1e3 / mean_ms:.3f} img/s, peak {peak / 2**30:.3f} GiB '
-          f'(warm-up with cuDNN autotuning {tuning_peak / 2**30:.3f} GiB); '
-          f'{moved} of {len(before)} parameter tensors and {stats_moved} of '
-          f'{len(stats_before)} SAN running statistics moved')
+    line = (f'{label} {H}x{W} b{TRAIN_B} fp32 (TF32 off), {sum(p.numel() for p in params)} '
+            f'parameters, dropout {cfg.model.depth_net.dropout}, flip '
+            f'{cfg.model.loss.flip_lr_prob}: {TRAIN_STEPS} steps after {TRAIN_WARMUP} '
+            f'warm-up, {mean_ms:.3f} ms/step by CUDA events (min {min(step_ms):.3f}, '
+            f'max {max(step_ms):.3f}), {TRAIN_B * 1e3 / mean_ms:.3f} img/s, peak '
+            f'{peak / 2**30:.3f} GiB (warm-up with cuDNN autotuning '
+            f'{tuning_peak / 2**30:.3f} GiB); {moved} of {len(before)} parameter tensors '
+            f'and {stats_moved} of {len(stats_before)} running statistics moved')
+    print(line)
     for i, r in enumerate(rows):
-        print(f'phase 7b step {i}: {step_ms[i]:.3f} ms, loss {r["loss"]:.6f}, edge '
-              f'{r["edge_loss"]:.6f}, supervised {r["supervised_loss"]:.6f}, '
-              f'grad_norm {r["grad_norm"]:.6f}')
-    total = sum(stages.values())
-    print('phase 7b where a training step goes (each part timed alone, ms): '
-          + ', '.join(f'{k} {v:.3f} ({100 * v / total:.1f} %)' for k, v in stages.items())
-          + f'; sum {total:.3f} vs {mean_ms:.3f} per step in the run')
+        print(f'{label} step {i}: {step_ms[i]:.3f} ms, '
+              + ', '.join(f'{k} {v:.6f}' for k, v in sorted(r.items())))
+    main = ('forward', 'loss', 'backward', 'optimizer')
+    total = sum(stages[k] for k in main)
+    print(f'{label} where a training step goes (each part timed alone, ms): '
+          + ', '.join(f'{k} {stages[k]:.3f} ({100 * stages[k] / total:.1f} %)' for k in main)
+          + f'; sum {total:.3f} vs {mean_ms:.3f} per step in the run'
+          + ''.join(f'; {k} alone {v:.3f}' for k, v in stages.items() if k not in main))
     return mean_ms, peak
+
+
+def phase_train_full(dev):
+    return train_full(dev, train_config(), full_width_batch(dev), 'phase 7b train')
+
+
+def phase_train_small_tasks(dev):
+    """8a: one step card vs CPU of each new task, and the photometric loss."""
+    for task, (_, _, floor) in TASKS.items():
+        loss_h, loss_c, worst = train_step_card_vs_cpu(dev, task=task)
+        bound = '1e-4' + (f', or {floor:g} of the network\'s largest' if floor else '')
+        print(f'phase 8a {task} train_step card vs cpu [2,64,96] (16,)*6: loss '
+              f'{loss_c} on the card, {loss_h} on the CPU; worst gradient error '
+              f'{worst["grad_vs_max"]:.3e} of its tensor\'s largest |gradient| (bound '
+              f'{bound}); worst parameter error after the Adam step '
+              f'{worst["param_vs_lr"]:.3e} lr (bound 1e-2); running stats within rtol 1e-4')
+    worst = photometric_card_vs_cpu(dev)
+    print(f'phase 8a photometric loss card vs cpu [2,64,96], 4 scales, 2 contexts, zeros '
+          f'and border padding: values within rtol 1e-5, worst gradient error {worst:.3e} '
+          f'of its tensor\'s largest |gradient| (bound 3e-4)')
+
+
+def phase_train_dee(dev):
+    cfg = train_config()
+    cfg.model.name = 'EdgeEstimationLIDARModel'
+    return train_full(dev, cfg, full_width_batch(dev), 'phase 8b DEE train')
+
+
+def selfsup_config():
+    """The shipped training config at supervised_loss_weight 0.9 with
+    PoseNet and one back and one forward context frame."""
+    cfg = train_config()
+    cfg.model.loss.supervised_loss_weight = 0.9
+    cfg.model.pose_net.name = 'PoseNet'
+    cfg.datasets.train.back_context = cfg.datasets.train.forward_context = 1
+    return cfg
+
+
+def phase_train_selfsup(dev):
+    batch = full_width_batch(dev)
+    batch['rgb_original'] = batch['rgb']
+    batch['rgb_context'] = [torch.roll(batch['rgb'], shift, dims=2) for shift in (4, -4)]
+    batch['rgb_context_original'] = batch['rgb_context']
+    batch['intrinsics'] = torch.from_numpy(kitti_intrinsics(TRAIN_B, H, W)).to(dev)
+    return train_full(dev, selfsup_config(), batch, 'phase 8c self-supervised train')
+
+
+def phase_train_kitti_cli(dev):
+    import os
+    import shutil
+    shutil.rmtree(KITTI_DIR, ignore_errors=True)
+    tree = os.path.join(KITTI_DIR, 'kitti')
+    split = write_kitti_tree(tree, n_frames=6, h=KITTI_H, w=KITTI_W, no_gt=())
+    cfg = selfsup_config()
+    cfg.model.name = 'SemiSupModel'
+    cfg.arch.max_epochs = 1
+    cfg.edges.depth_edges_metric_log = False
+    cfg.datasets.augmentation.image_shape = (KITTI_H, KITTI_W)
+    cfg.datasets.train.batch_size = 2
+    for mode in ('train', 'validation'):
+        ds = cfg.datasets[mode]
+        ds.dataset, ds.path, ds.split = ['KITTI'], [tree], [split]
+    cfg.checkpoint.filepath = os.path.join(KITTI_DIR, 'checkpoints')
+    yaml_path = os.path.join(KITTI_DIR, 'train.yaml')
+    cfg.save_yaml(yaml_path)
+    t0 = time.perf_counter()
+    exp = train_edges.main([yaml_path], device=dev)
+    secs = time.perf_counter() - t0
+    check(len(exp.train_loader.dataset) == 4 and exp.state.step == 2,
+          f'{len(exp.train_loader.dataset)} KITTI frames with context, {exp.state.step} steps')
+    ckpts = sorted(f for f in os.listdir(cfg.checkpoint.filepath) if f.endswith('.ckpt'))
+    check(len(ckpts) == 1, f'checkpoints written: {ckpts}')
+    ckpt = load_checkpoint(os.path.join(cfg.checkpoint.filepath, ckpts[0]))
+    own = {f'model.{tag}.{k}': v for tag, net in (('depth_net', exp.state.net),
+                                                  ('pose_net', exp.state.pose_net))
+           for k, v in net.state_dict().items()}
+    check(set(own) == set(ckpt['state_dict'])
+          and all(torch.equal(ckpt['state_dict'][k], v.cpu()) for k, v in own.items()),
+          'the KITTI checkpoint does not hold both networks bit-equal')
+    print(f'phase 8d train_edges.main SemiSupModel + PoseNet on a synthetic KITTI tree '
+          f'{KITTI_H}x{KITTI_W}, 6 frames (4 with both context frames), batch 2, 1 epoch '
+          f'with validation: {secs:.1f} s; wrote {ckpts[0]} with '
+          f'{sum(k.startswith("model.pose_net.") for k in own)} pose-network entries, '
+          f'reloads bit-equal')
 
 
 def write_split(root, n, h, w, seed=0):
@@ -798,6 +915,16 @@ def main():
     timed('7c', phase_train_cli, dev)
     launches7 = nms_kernel.launches
     check(launches7 == 0, f'NMS kernel launched {launches7} times on the training path')
+    launches8 = 0
+    for name, fn in (('8a', phase_train_small_tasks), ('8b', phase_train_dee),
+                     ('8c', phase_train_selfsup), ('8d', phase_train_kitti_cli)):
+        nms_kernel.launches = 0
+        timed(name, fn, dev)
+        check(nms_kernel.launches == 0,
+              f'NMS kernel launched {nms_kernel.launches} times in phase {name}')
+        launches8 += nms_kernel.launches
+    print(f'NMS launches on the phase-8 training paths (DEE, completion, '
+          f'self-supervised): {launches8}')
     print('phase wall times (s): ' + ', '.join(f'{k} {v:.1f}' for k, v in walls.items()))
     print(f'chip_smoke wall time {time.perf_counter() - t0:.1f} s')
     card = card_line()
@@ -806,9 +933,10 @@ def main():
         'name': 'nms_sobel5', 'route': 'cuda',
         'source': 'mindtheedge_tpu_torch/csrc/nms_kernel.cu',
         'replaces': 'mindtheedge_tpu/ops/pallas/nms_kernel.py:111',
-        'launches': launches4 + launches5 + launches6 + launches7,
+        'launches': launches4 + launches5 + launches6 + launches7 + launches8,
         'launches_by_path': {'serve': launches4, 'annotate': launches5,
-                             'infer': launches6, 'train': launches7},
+                             'infer': launches6, 'train': launches7,
+                             'train_dee_completion_selfsup': launches8},
         'max_abs_err': max(err2, err4, err5),
         'mismatched_px': bad2 + bad4 + bad5,
         'checked_px': px2 + prob.numel() + px5,

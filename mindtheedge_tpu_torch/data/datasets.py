@@ -8,8 +8,8 @@ space-separated split columns::
 with per-column readers (png/bin/npy), multiscale edge and normal side
 files by the ``_000`` -> ``_001..003`` name convention, and the uint8 ->
 radians normal decode.  'None' entries are skipped.  The GTA intrinsics
-are a parameter, defaulting to the reference's fixed K.  ``KITTIDataset``
-waits for ROADMAP Queue 1 item 24.  cv2 and PIL are imported inside the
+are a parameter, defaulting to the reference's fixed K.  ``KITTI`` names
+``data/kitti_dataset.KITTIDataset``.  cv2 and PIL are imported inside the
 functions that use them.
 """
 
@@ -164,7 +164,11 @@ class ConcatDataset:
 
 
 def _kitti(*args, **kwargs):
-    raise NotImplementedError('KITTIDataset waits for ROADMAP Queue 1 item 24')
+    """``KITTIDataset``, which takes its intrinsics from each drive's
+    calibration (``datasets.py:171-174``)."""
+    from mindtheedge_tpu_torch.data.kitti_dataset import KITTIDataset
+    kwargs.pop('intrinsics', None)
+    return KITTIDataset(*args, **kwargs)
 
 
 DATASET_REGISTRY = {

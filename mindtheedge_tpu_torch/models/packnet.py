@@ -115,14 +115,13 @@ class PackNetSAN(nn.Module):
     ``version`` and ``input_channels`` are the config's
     (``tasks.build_depth_net``); only 1A on RGB is ported: the 4-channel
     ``rgb_edge`` input and versions other than 1A raise (ROADMAP Queue 1
-    item 10), and ``remat`` raises (item 23).  The ``freeze_*`` flags are
-    kept here for the optimizer, which leaves those parameters out
+    item 10), and ``remat`` raises (item 23).  The config's ``freeze_*``
+    flags are the optimizer's: it leaves those parameters out
     (``training/optimizer.py``), as the JAX package does.
     """
 
     def __init__(self, channels=SLIM_CHANNELS, version='1A', input_channels=3,
-                 output_channels=1, dropout=None, remat=False,
-                 freeze_encoder=False, freeze_decoder=False, freeze_san=False):
+                 output_channels=1, dropout=None, remat=False):
         super().__init__()
         if version != '1A':
             raise NotImplementedError(
@@ -141,9 +140,6 @@ class PackNetSAN(nn.Module):
         self.mconvs = SparseDepthEncoder(tuple(channels[1:]))
         self.weight = nn.Parameter(torch.ones(5))
         self.bias = nn.Parameter(torch.zeros(5))
-        self.freeze_encoder = freeze_encoder
-        self.freeze_decoder = freeze_decoder
-        self.freeze_san = freeze_san
 
     def run_network(self, rgb, input_depth=None, generator=None):
         """NCHW: rgb [B,3,H,W], input_depth [B,1,H,W] -> (4 inverse depths,

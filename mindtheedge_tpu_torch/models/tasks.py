@@ -1,35 +1,47 @@
 """Task models: counterpart of ``mindtheedge_tpu/models/tasks.py``
-(``TASK_REGISTRY``, ``build_task``, ``build_depth_net`` ``:33-88``;
-``BaseTask.run_depth`` / ``infer`` / the loss pieces ``:180-303``;
-``SemiSupTask`` and ``SemiSupEdgeTask`` ``:327-419``;
-``EdgeEstimationLIDARTask`` ``:471-511``).
+(``TASK_REGISTRY``, ``build_task``, ``build_depth_net``,
+``build_pose_net`` ``:33-95``; ``BaseTask.run_depth`` / ``run_pose`` /
+``infer`` / the loss pieces ``:180-303``; the training tasks ``:306-558``).
 
-A task holds its depth network, an ``nn.Module`` on its device, and its
-model's input, output and loss conventions.  Inputs and outputs are NHWC,
-as in the JAX package.  ``train_loss(batch, generator, progress)`` returns
-``(loss, metrics)``: the network's output dict is dropped inside, so the
-graph of the RGBD pass, whose outputs no ported loss reads, is freed
-before the backward.  Random draws (the lr-flip and dropout) come from the
+A task holds its depth network, an ``nn.Module`` on its device, the pose
+network of the self-supervised losses where ``model.pose_net.name`` names
+one, and its model's input, output and loss conventions.  Inputs and
+outputs are NHWC, as in the JAX package.  ``train_loss(batch, generator,
+progress)`` runs the training forward and then the task's ``losses(batch,
+output)``, and returns ``(loss, metrics)``: the network's output dict is
+dropped inside, so the graph of an RGBD pass whose outputs no loss of the
+task reads is freed before the backward (the completion and DEE tasks read
+it, and keep it).  Random draws (the lr-flip and dropout) come from the
 caller's ``torch.Generator`` on the task's device.
 
-Not ported yet, each raising with its ROADMAP Queue 1 item: the
-self-supervised (photometric) part of the semi-supervised losses, i.e.
-``supervised_loss_weight != 1`` (item 16); ``EdgeEstimationLIDARTask``
-training (item 21); the other tasks (item 22); bf16 (item 9).
+The pose network stays in eval mode, as in the JAX package, whose
+``run_pose`` applies it without ``train`` or ``mutable`` (``:246-253``):
+``PoseResNet``'s batch norms normalise with their running statistics in
+training too, and those never update; its parameters still train.
+
+Not ported yet, each raising with its ROADMAP Queue 1 item: the generic
+ray-surface tasks (``GenericSfmModel``, ``GenericSelfSupModel``) and
+``RaySurfaceResNet`` (item 26); bf16 (item 9).
 """
 
 import torch
 
 from mindtheedge_tpu_torch import resolve_device
+from mindtheedge_tpu_torch.geometry.pose import pose_vec2mat
 from mindtheedge_tpu_torch.losses.grad_loss import grad_loss
+from mindtheedge_tpu_torch.losses.photometric import multiview_photometric_loss
 from mindtheedge_tpu_torch.losses.supervised import supervised_loss
+from mindtheedge_tpu_torch.models import packnet, resnet
 from mindtheedge_tpu_torch.models.model_utils import upsample_output
-from mindtheedge_tpu_torch.models.packnet import PackNetSAN, init_weights, to_device
-from mindtheedge_tpu_torch.training.checkpoint import restore_depth_net
+from mindtheedge_tpu_torch.models.packnet import PackNetSAN, to_device
+from mindtheedge_tpu_torch.models.posenet import PoseNet
+from mindtheedge_tpu_torch.models.resnet import DepthResNet, PoseResNet
+from mindtheedge_tpu_torch.training.checkpoint import restore_depth_net, restore_pose_net
 from mindtheedge_tpu_torch.utils.depth import depth2inv, inv2depth
 from mindtheedge_tpu_torch.utils.image import flip_lr
 
 TASK_REGISTRY = {}
+GENERIC_TASKS = ('GenericSfmModel', 'GenericSelfSupModel')
 
 
 def register_task(name):
@@ -41,13 +53,15 @@ def register_task(name):
 
 def build_task(config, device=None, ckpt=None):
     """The task named by ``config.model.name`` (``tasks.py:43-49``), its
-    network drawn from ``config.arch.seed`` and then restored from ``ckpt``
-    where one is given, on ``device`` (``None`` -> CUDA), in eval mode."""
+    networks drawn from ``config.arch.seed`` (the pose network from
+    ``seed + 1``) and then restored from ``ckpt`` where one is given, on
+    ``device`` (``None`` -> CUDA), in eval mode."""
     name = config.model.name
+    if name in GENERIC_TASKS:
+        raise NotImplementedError(
+            f'{name}: the generic ray-surface tasks wait for ROADMAP Queue 1 item 26')
     if name not in TASK_REGISTRY:
-        raise KeyError(f'Unknown model {name}; the port has '
-                       f'{sorted(TASK_REGISTRY)} (the other tasks wait for '
-                       'ROADMAP Queue 1 items 16 and 22)')
+        raise KeyError(f'Unknown model {name}; known: {sorted(TASK_REGISTRY)}')
     return TASK_REGISTRY[name](config, device, ckpt)
 
 
@@ -59,15 +73,32 @@ def build_depth_net(cfg):
                           input_channels=cfg.input_channels,
                           output_channels=cfg.output_channels,
                           dropout=cfg.dropout or None,
-                          remat=cfg.get('remat', False) or False,
-                          freeze_encoder=cfg.freeze_encoder,
-                          freeze_decoder=cfg.freeze_decoder,
-                          freeze_san=cfg.freeze_san, **extra)
+                          remat=cfg.get('remat', False) or False, **extra)
     if cfg.name in ('PackNet01', 'PackNetSlim01'):
         raise NotImplementedError(
             f'{cfg.name} waits for ROADMAP Queue 1 item 10')
-    raise NotImplementedError(
-        f'depth network {cfg.name!r} is not ported (ROADMAP Queue 1 item 16)')
+    if cfg.name == 'DepthResNet':
+        return DepthResNet(version=cfg.version or '18')
+    if cfg.name == 'RaySurfaceResNet':
+        raise NotImplementedError(
+            'RaySurfaceResNet waits for ROADMAP Queue 1 item 26 (generic tasks)')
+    raise ValueError(f'Unknown depth network {cfg.name!r}')
+
+
+def build_pose_net(cfg):
+    """The pose network of ``config.model.pose_net`` (``tasks.py:90-94``)."""
+    if cfg.name == 'PoseNet':
+        return PoseNet()
+    if cfg.name == 'PoseResNet':
+        return PoseResNet(version=cfg.version or '18')
+    raise ValueError(f'Unknown pose network {cfg.name!r}')
+
+
+def init_weights(net, seed):
+    """Seeded initialisation of a depth or pose network, on the CPU."""
+    if isinstance(net, (DepthResNet, PoseResNet)):
+        return resnet.init_weights(net, seed)
+    return packnet.init_weights(net, seed)
 
 
 def _maybe_flip(x, flip):
@@ -80,11 +111,18 @@ def _maybe_flip(x, flip):
     return torch.where(flip, flip_lr(x), x)
 
 
+def _detached(metrics):
+    return {k: v.detach() for k, v in metrics.items()}
+
+
 class BaseTask:
-    """The depth forward with its lr-flip wrapper, and the loss pieces."""
+    """The depth and pose forwards with the lr-flip wrapper, and the loss
+    pieces."""
 
     # batch keys forwarded to the depth net (reference _input_keys)
     input_keys = ('rgb', 'input_depth', 'rgb_edge')
+    needs_pose = True
+    self_supervised = False     # whether train_loss runs the photometric loss
 
     def __init__(self, config, device=None, ckpt=None):
         if getattr(config.arch, 'precision', 'float32') == 'bfloat16':
@@ -94,18 +132,30 @@ class BaseTask:
         mloss = config.model.loss
         self.flip_lr_prob = mloss.flip_lr_prob
         self.upsample_depth_maps = mloss.upsample_depth_maps
+        self.rotation_mode = mloss.rotation_mode
         self.supervised_method = mloss.supervised_method
         self.supervised_num_scales = mloss.supervised_num_scales
         self.supervised_loss_weight = mloss.supervised_loss_weight
         self.all_scales_edge = mloss.edges_depth_edge_loss_all_scales
         self.depth_edges_loss_weight = mloss.depth_edges_loss_weight
         self.edge_cfg = config.edges
+        self.photometric_kwargs = dict(
+            num_scales=mloss.num_scales, ssim_loss_weight=mloss.ssim_loss_weight,
+            smooth_loss_weight=mloss.smooth_loss_weight, C1=mloss.C1, C2=mloss.C2,
+            photometric_reduce_op=mloss.photometric_reduce_op,
+            clip_loss=mloss.clip_loss, padding_mode=mloss.padding_mode,
+            automask_loss=mloss.automask_loss)
         device = resolve_device(device)
-        net = init_weights(build_depth_net(config.model.depth_net),
-                           config.arch.seed)
+        net = init_weights(build_depth_net(config.model.depth_net), config.arch.seed)
         if ckpt is not None:
             restore_depth_net(net, ckpt)
         self.depth_net = to_device(net, device)
+        self.pose_net = None
+        if self.needs_pose and config.model.pose_net.name:
+            pose = init_weights(build_pose_net(config.model.pose_net), config.arch.seed + 1)
+            if ckpt is not None:
+                restore_pose_net(pose, ckpt)
+            self.pose_net = to_device(pose, device)
         self.device = device
 
     def run_depth(self, batch, force_flip=False, train=False, generator=None):
@@ -141,17 +191,35 @@ class BaseTask:
                 out = upsample_output(out)
         return out
 
+    def run_pose(self, batch):
+        """The pose network on ``batch['rgb']`` and ``batch['rgb_context']``
+        -> one [B,4,4] transform per context image (``tasks.py:246-253``),
+        the network in eval mode (see the module's docstring)."""
+        pose_vec = self.pose_net.eval()(batch['rgb'], batch['rgb_context'])
+        return [pose_vec2mat(pose_vec[:, i], self.rotation_mode)
+                for i in range(pose_vec.shape[1])]
+
     def infer(self, batch, force_flip=False):
         return self.run_depth(batch, force_flip=force_flip)
 
     # -- loss pieces -----------------------------------------------------------
     def check_trainable(self):
-        """Raise for what ``train_loss`` cannot run yet, before any work."""
-        raise NotImplementedError(
-            f'{type(self).__name__} training waits for ROADMAP Queue 1 item 22')
+        """Raise for a configuration ``train_loss`` cannot run, before any
+        work: the photometric loss needs a pose network."""
+        if self.self_supervised and self.pose_net is None:
+            raise ValueError(
+                f'{type(self).__name__} with supervised_loss_weight '
+                f'{self.supervised_loss_weight} runs the photometric loss, which '
+                'needs model.pose_net.name (PoseNet or PoseResNet) and context '
+                'frames (datasets.train.back_context / forward_context)')
 
-    def train_loss(self, batch, generator=None, progress=0.0):
-        self.check_trainable()
+    def _self_sup_loss(self, batch, output, poses):
+        """The photometric loss of the target image against its context
+        images (``tasks.py:262-268``)."""
+        return multiview_photometric_loss(
+            batch['rgb_original'], batch['rgb_context_original'],
+            output['inv_depths'], batch['intrinsics'], batch['intrinsics'],
+            poses, **self.photometric_kwargs)
 
     def _supervised(self, inv_depths, gt_depth):
         return supervised_loss(
@@ -187,70 +255,212 @@ class BaseTask:
             total = total / 4.0
         return total
 
+    def _zero(self):
+        return torch.zeros((), device=self.device)
 
-@register_task('SemiSupModel')
-class SemiSupTask(BaseTask):
-    """(1-w)*selfsup + w*supervised (``tasks.py:327-348``); only w = 1, the
-    purely supervised form, is ported."""
-
-    def check_trainable(self):
-        if self.supervised_loss_weight != 1.0:
-            raise NotImplementedError(
-                f'{type(self).__name__} with supervised_loss_weight '
-                f'{self.supervised_loss_weight} needs the pose net and the '
-                'photometric loss: ROADMAP Queue 1 item 16')
+    def prep_batch(self, batch):
+        """The batch as the network reads it (the identity but for DEE)."""
+        return batch
 
     def train_loss(self, batch, generator=None, progress=0.0):
-        self.check_trainable()
-        out = self.run_depth(batch, train=True, generator=generator)
+        """The training forward, then :meth:`losses` -> (loss, metrics);
+        the output dict dies here, before the caller's backward."""
+        batch = self.prep_batch(batch)
+        return self.losses(batch, self.run_depth(batch, train=True, generator=generator))
+
+
+@register_task('SfmModel')
+class SfmTask(BaseTask):
+    """Depth (+ pose) container with no loss of its own (``tasks.py:306-313``):
+    the step updates only the depth network's running statistics."""
+
+    def losses(self, batch, out):
+        zero = self._zero()
+        return zero, {'loss': zero}
+
+
+@register_task('SelfSupModel')
+class SelfSupTask(BaseTask):
+    """The multiview photometric loss (``tasks.py:316-324``, reference
+    ``SelfSupModel.py:64-98``)."""
+
+    self_supervised = True
+
+    def losses(self, batch, out):
+        loss, metrics = self._self_sup_loss(batch, out, self.run_pose(batch))
+        return loss, _detached(dict(metrics, loss=loss))
+
+
+@register_task('SemiSupModel')
+class SemiSupTask(SelfSupTask):
+    """(1-w) * selfsup + w * supervised (``tasks.py:327-348``).  At w = 1 no
+    pose network is built."""
+
+    def __init__(self, config, device=None, ckpt=None):
+        self.self_supervised = self.needs_pose = \
+            config.model.loss.supervised_loss_weight != 1.0
+        super().__init__(config, device, ckpt)
+
+    def _weighted_self_sup(self, batch, out):
+        """(1 - w) * the photometric loss and its metrics; 0 and none at
+        w = 1 (``tasks.py:339-344``)."""
+        if not self.self_supervised:
+            return self._zero(), {}
+        loss, metrics = self._self_sup_loss(batch, out, self.run_pose(batch))
+        return (1.0 - self.supervised_loss_weight) * loss, metrics
+
+    def losses(self, batch, out):
+        loss, metrics = self._weighted_self_sup(batch, out)
         sup = self._supervised(out['inv_depths'], batch['depth'])
-        loss = self.supervised_loss_weight * sup
-        return loss, {'supervised_loss': sup.detach(), 'loss': loss.detach()}
+        loss = loss + self.supervised_loss_weight * sup
+        return loss, _detached(dict(metrics, supervised_loss=sup, loss=loss))
+
+
+@register_task('SemiSupCompletionModel')
+class SemiSupCompletionTask(SemiSupTask):
+    """+ the depth-completion (RGBD) pass's supervised loss and the
+    feature-consistency ``depth_loss`` (``tasks.py:351-380``, reference
+    ``SemiSupCompletionModel.py:76-124``).  Its loss reads the RGBD pass, so
+    that pass's graph lives through the backward."""
+
+    weight_rgbd = 1.0
+
+    def losses(self, batch, out):
+        loss, metrics = self._weighted_self_sup(batch, out)
+        sup = self._supervised(out['inv_depths'], batch['depth'])
+        loss = loss + self.supervised_loss_weight * sup
+        if 'inv_depths_rgbd' in out:
+            sup2 = self._supervised(out['inv_depths_rgbd'], batch['depth'])
+            loss = loss + self.weight_rgbd * self.supervised_loss_weight * sup2
+            metrics['supervised_loss_rgbd'] = sup2
+            if 'depth_loss' in out:
+                loss = loss + out['depth_loss']
+                metrics['depth_loss'] = out['depth_loss']
+        return loss, _detached(dict(metrics, supervised_loss=sup, loss=loss))
 
 
 @register_task('SemiSupEdgeModel')
 class SemiSupEdgeTask(SemiSupTask):
     """The paper's training model (``tasks.py:382-419``, reference
-    ``SemiSupEdgeModel.py:98-162``): w * supervised + edge_w * GradLoss over
-    the scales.  The edge term is gated on ``edges.train_depth_edges``; off,
-    it reports 0."""
+    ``SemiSupEdgeModel.py:98-162``): (1-w) * selfsup + w * supervised +
+    edge_w * GradLoss over the scales.  The edge term is gated on
+    ``edges.train_depth_edges``; off, it reports 0."""
 
-    def train_loss(self, batch, generator=None, progress=0.0):
-        self.check_trainable()
-        out = self.run_depth(batch, train=True, generator=generator)
-        if self.edge_cfg.train_depth_edges:
-            edge = self.depth_edges_loss_weight * self._edge_loss_all_scales(
-                out['inv_depths'], batch, batch.get('rgb_edge'),
-                is_grad=True, is_sigmoid=True, sigmoid_thresh=4.0)
-        else:
-            edge = torch.zeros((), device=self.device)
+    def _edge(self, inv_depths, batch):
+        if not self.edge_cfg.train_depth_edges:
+            return self._zero()
+        return self._edge_loss_all_scales(
+            inv_depths, batch, batch.get('rgb_edge'),
+            is_grad=True, is_sigmoid=True, sigmoid_thresh=4.0)
+
+    def losses(self, batch, out):
+        loss, metrics = self._weighted_self_sup(batch, out)
+        edge = self.depth_edges_loss_weight * self._edge(out['inv_depths'], batch)
         supervised = self.supervised_loss_weight * self._supervised(
             out['inv_depths'], batch['depth'])
-        loss = supervised + edge
-        return loss, {'edge_loss': edge.detach(),
-                      'supervised_loss': supervised.detach(),
-                      'loss': loss.detach()}
+        loss = loss + supervised + edge
+        return loss, _detached(dict(metrics, edge_loss=edge,
+                                    supervised_loss=supervised, loss=loss))
+
+
+@register_task('SemiSupEdgeCompletionModel')
+class SemiSupEdgeCompletionTask(SemiSupEdgeTask):
+    """Edge + completion (``tasks.py:422-468``, reference
+    ``SemiSupEdgeCompletionModel.py:96-180``): the supervised and edge terms
+    of both passes, halved, and ``depth_loss``.  As in the JAX package,
+    ``edge_lidar_loss`` is 0 without an RGBD pass, where the reference's is
+    undefined (``tasks.py:452``)."""
+
+    weight_rgbd = 1.0
+
+    def losses(self, batch, out):
+        loss, metrics = self._weighted_self_sup(batch, out)
+        edge = self.depth_edges_loss_weight * self._edge(out['inv_depths'], batch)
+        supervised = self.supervised_loss_weight * self._supervised(
+            out['inv_depths'], batch['depth']) / 2.0
+        edge_lidar = self._zero()
+        if 'inv_depths_rgbd' in out:
+            edge_lidar = self._edge(out['inv_depths_rgbd'], batch)
+            sup2 = self._supervised(out['inv_depths_rgbd'], batch['depth'])
+            supervised = supervised + \
+                self.weight_rgbd * self.supervised_loss_weight * sup2 / 2.0
+            if 'depth_loss' in out:
+                loss = loss + out['depth_loss']
+                metrics['depth_loss'] = out['depth_loss']
+        loss = loss + supervised + (edge + edge_lidar) / 2.0
+        return loss, _detached(dict(metrics, edge_loss=edge, edge_lidar_loss=edge_lidar,
+                                    supervised_loss=supervised, loss=loss))
 
 
 @register_task('EdgeEstimationLIDARModel')
 class EdgeEstimationLIDARTask(BaseTask):
-    """The DEE model (``tasks.py:471-511``): ``infer`` divides the LiDAR by
-    200 and halves every scale into a [0, 1] edge probability.
-    ``run_depth`` does neither: the annotation CLI divides the LiDAR itself
-    when it reads it and halves each scale it uses.  Its training waits for
-    ROADMAP Queue 1 item 21."""
+    """The DEE model (``tasks.py:471-535``, reference
+    ``EdgeEstimationLIDARModel.py:87-181``): the LiDAR divided by 200, the
+    predictions halved into a [0, 1] edge probability, the edge BCE
+    (GradLoss with ``is_grad`` and ``is_sigmoid`` off) on the RGB and RGBD
+    passes.  ``infer`` divides and halves every scale; ``run_depth`` does
+    neither: the annotation CLI divides the LiDAR itself when it reads it
+    and halves each scale it uses."""
 
+    needs_pose = False
     input_keys = ('rgb', 'input_depth')
+    weight_rgbd = 1.0
 
-    def check_trainable(self):
-        raise NotImplementedError(
-            'EdgeEstimationLIDARModel training (DEE) waits for ROADMAP '
-            'Queue 1 item 21')
-
-    def infer(self, batch, force_flip=False):
+    def prep_batch(self, batch):
         batch = dict(batch)
         if batch.get('input_depth') is not None:
             batch['input_depth'] = batch['input_depth'] / 200.0
-        out = self.run_depth(batch, force_flip=force_flip)
+        return batch
+
+    def infer(self, batch, force_flip=False):
+        out = self.run_depth(self.prep_batch(batch), force_flip=force_flip)
         out['inv_depths'] = [d / 2.0 for d in out['inv_depths']]
         return out
+
+    def losses(self, batch, out):
+        # the first 4 scales halved with all-scale edges, scale 0 alone
+        # otherwise (tasks.py:492-500)
+        n = 4 if self.all_scales_edge else 1
+        for key in ('inv_depths', 'inv_depths_rgbd'):
+            if key in out:
+                out[key] = [d / 2.0 if s < n else d for s, d in enumerate(out[key])]
+
+        def edge(probs):
+            return self._edge_loss_all_scales(
+                probs, batch, None, is_grad=False, is_sigmoid=False,
+                use_normals=False, convert_to_depth=False)
+
+        edge_rgb = edge(out['inv_depths'])
+        metrics = {'edge_loss': edge_rgb}
+        loss, edge_lidar = self._zero(), self._zero()
+        if 'inv_depths_rgbd' in out:
+            edge_lidar = edge(out['inv_depths_rgbd'])
+            metrics['edge_lidar_loss'] = edge_lidar
+            if 'depth_loss' in out:
+                loss = loss + out['depth_loss']
+                metrics['depth_loss'] = out['depth_loss']
+        loss = loss + (edge_rgb + self.weight_rgbd * edge_lidar) / 2.0
+        return loss, _detached(dict(metrics, loss=loss))
+
+
+@register_task('VelSupModel')
+class VelSupTask(SelfSupTask):
+    """SelfSup + velocity supervision, the norm of the predicted pose's
+    translation against the GT pose's (``tasks.py:537-558``, reference
+    ``VelSupModel.py:19-53``, ``losses/velocity_loss.py:30-38``).  The JAX
+    step runs the pose network twice, once per term, and XLA merges the
+    two; here the poses are computed once and feed both."""
+
+    def __init__(self, config, device=None, ckpt=None):
+        super().__init__(config, device, ckpt)
+        self.velocity_loss_weight = config.model.loss.velocity_loss_weight
+
+    def losses(self, batch, out):
+        poses = self.run_pose(batch)
+        loss, metrics = self._self_sup_loss(batch, out, poses)
+        vel = self._zero()
+        for pred, gt in zip(poses, batch['pose_context']):
+            vel = vel + (pred[:, :3, 3].norm(dim=-1) - gt[:, :3, 3].norm(dim=-1)).abs().mean()
+        vel = vel / max(len(poses), 1)
+        loss = loss + self.velocity_loss_weight * vel
+        return loss, _detached(dict(metrics, velocity_loss=vel, loss=loss))

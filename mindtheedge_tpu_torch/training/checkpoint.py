@@ -14,13 +14,17 @@
   ``model.depth_net.`` / ``depth_net.`` / ``module.`` / ``model.`` prefixes
   (``utils/torch_port.py:45-53``).
 
-``restore_depth_net(model, ckpt)`` loads every entry whose name and shape
-match the port's model and prints ``Restored n/total params`` as
-``restore_params`` does.
+``restore_depth_net(model, ckpt)`` and ``restore_pose_net(model, ckpt)``
+load every entry of that network whose name and shape match the port's
+model and print ``Restored n/total params`` as ``restore_params`` does.
+A pose network's entries are ``state_dict['pose']`` in format (a) (a
+``PoseNet`` or ``PoseResNet`` tree) and the ``model.pose_net.`` /
+``pose_net.`` keys in format (b).
 
 The save side (``checkpoint.py:27-45, 109-210``): ``save_checkpoint``
 writes format (b), a ``torch.save`` file whose ``state_dict`` holds the
-reference names under ``model.depth_net.``, beside ``optimizer``,
+reference names under ``model.depth_net.`` (and the pose network's under
+``model.pose_net.``), beside ``optimizer``,
 ``scheduler``, ``epoch`` (the index of the epoch to run next),
 ``global_step``, ``config`` and ``metrics``.  ``ModelCheckpoint`` names the
 files ``epoch=NN[_f1=...][_<monitor>=...].ckpt`` with the ``b.ckpt``
@@ -37,7 +41,8 @@ import numpy as np
 
 import torch
 
-from mindtheedge_tpu_torch.utils.weights import state_dict_from_jax
+from mindtheedge_tpu_torch.utils.weights import (
+    pose_state_dict_from_jax, resnet_state_dict_from_jax, state_dict_from_jax)
 
 _BUILTINS = frozenset((
     'bool', 'bytearray', 'bytes', 'complex', 'dict', 'float', 'frozenset',
@@ -48,6 +53,7 @@ _NUMPY = frozenset((      # numpy's own reconstructors, under numpy 1 and 2
     ('numpy._core.multiarray', '_reconstruct'), ('numpy._core.multiarray', 'scalar'),
     ('numpy.core.numeric', '_frombuffer'), ('numpy._core.numeric', '_frombuffer')))
 _PREFIXES = ('model.depth_net.', 'depth_net.', 'module.', 'model.')
+_POSE_PREFIXES = ('model.pose_net.', 'pose_net.')
 
 
 class _OptimizerState(tuple):
@@ -91,26 +97,68 @@ def strip_prefix(state_dict):
     return out
 
 
+def split_state_dict(state_dict):
+    """A torch ``state_dict`` -> (the depth network's entries, the pose
+    network's with its ``model.pose_net.`` / ``pose_net.`` prefix removed)."""
+    depth, pose = {}, {}
+    for key, val in state_dict.items():
+        prefix = next((p for p in _POSE_PREFIXES if key.startswith(p)), None)
+        if prefix is None:
+            depth[key] = val
+        else:
+            pose[key[len(prefix):]] = val
+    return depth, pose
+
+
+def _is_flax(ckpt):
+    sd = ckpt['state_dict']
+    return isinstance(sd.get('depth'), dict) or isinstance(sd.get('pose'), dict)
+
+
 def depth_state_dict(ckpt):
     """The depth network's weights in a checkpoint of either format, under
-    the port's (reference PackNetSAN01) names."""
-    sd = ckpt['state_dict']
-    if isinstance(sd.get('depth'), dict):       # (a) flax trees
+    the port's (reference PackNetSAN01 or monodepth2) names."""
+    if _is_flax(ckpt):                          # (a) flax trees
+        tree = ckpt['state_dict']['depth']
         stats = (ckpt.get('batch_stats') or {}).get('depth')
-        return state_dict_from_jax(sd['depth'], stats)
-    return {k: torch.as_tensor(v) for k, v in strip_prefix(sd).items()}
+        if 'mconvs' in tree:
+            return state_dict_from_jax(tree, stats)
+        return resnet_state_dict_from_jax(tree, stats)
+    depth, _ = split_state_dict(ckpt['state_dict'])
+    return {k: torch.as_tensor(v) for k, v in strip_prefix(depth).items()}
 
 
-def restore_depth_net(model, ckpt):
-    """Load the entries of ``ckpt`` whose name and shape match ``model``
-    and print how many of its parameters they cover."""
+def pose_state_dict(ckpt):
+    """The pose network's weights in a checkpoint of either format ({}
+    where it holds none)."""
+    if _is_flax(ckpt):
+        tree = ckpt['state_dict'].get('pose')
+        if tree is None:
+            return {}
+        return pose_state_dict_from_jax(tree, (ckpt.get('batch_stats') or {}).get('pose'))
+    _, pose = split_state_dict(ckpt['state_dict'])
+    return {k: torch.as_tensor(v) for k, v in pose.items()}
+
+
+def _restore(model, entries, what):
     own = model.state_dict()
-    loaded = {k: v for k, v in depth_state_dict(ckpt).items()
+    loaded = {k: v for k, v in entries.items()
               if k in own and tuple(v.shape) == tuple(own[k].shape)}
     model.load_state_dict(loaded, strict=False)
     names = [name for name, _ in model.named_parameters()]
     n = sum(name in loaded for name in names)
-    print(f'Restored {n}/{len(names)} params')
+    print(f'Restored {n}/{len(names)} {what}params')
+
+
+def restore_depth_net(model, ckpt):
+    """Load the depth entries of ``ckpt`` whose name and shape match
+    ``model`` and print how many of its parameters they cover."""
+    _restore(model, depth_state_dict(ckpt), '')
+
+
+def restore_pose_net(model, ckpt):
+    """As :func:`restore_depth_net`, for the pose network."""
+    _restore(model, pose_state_dict(ckpt), 'pose ')
 
 
 def save_checkpoint(path, config, state, metrics=None):
@@ -121,8 +169,11 @@ def save_checkpoint(path, config, state, metrics=None):
         'config': config.to_dict() if hasattr(config, 'to_dict') else dict(config),
         'epoch': int(state.epoch),
         'global_step': int(state.step),
-        'state_dict': {f'model.depth_net.{k}': v.detach().cpu()
-                       for k, v in state.net.state_dict().items()},
+        'state_dict': {f'model.{net}.{k}': v.detach().cpu()
+                       for net, module in (('depth_net', state.net),
+                                           ('pose_net', state.pose_net))
+                       if module is not None
+                       for k, v in module.state_dict().items()},
         'optimizer': state.optimizer.state_dict(),
         'scheduler': state.scheduler.state_dict(),
         'metrics': {k: float(v) for k, v in (metrics or {}).items()},
@@ -137,8 +188,11 @@ def save_checkpoint(path, config, state, metrics=None):
 def restore_train_state(state, ckpt):
     """Resume ``state`` from a checkpoint that ``save_checkpoint`` wrote:
     the network (strictly), the optimizer's moments and step counts, the
-    scheduler's position, ``epoch`` and ``step`` (``experiment.py:150-178``)."""
+    scheduler's position, ``epoch`` and ``step`` (``experiment.py:150-178``);
+    the pose network too where the state has one."""
     state.net.load_state_dict(depth_state_dict(ckpt))
+    if state.pose_net is not None:
+        state.pose_net.load_state_dict(pose_state_dict(ckpt))
     state.optimizer.load_state_dict(ckpt['optimizer'])
     state.scheduler.load_state_dict(ckpt['scheduler'])
     state.epoch = int(ckpt['epoch'])

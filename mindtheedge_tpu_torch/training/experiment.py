@@ -2,7 +2,7 @@
 ``mindtheedge_tpu/training/experiment.py`` (reference ``ModelWrapper`` and
 ``CommonTrainer``, ``model_wrapper.py:197-442``, ``common_trainer.py:42-91``).
 
-It owns the task (network and losses), the datasets and loaders, the train
+It owns the task (networks and losses), the datasets and loaders, the train
 state and a ``torch.Generator`` on the device seeded from ``arch.seed``
 (the lr-flip and dropout draws).  ``fit`` runs the epochs: each batch goes
 to the card through pinned memory, one train step, the step's metrics
@@ -28,7 +28,8 @@ from mindtheedge_tpu_torch.losses.loss_base import ProgressiveScaling
 from mindtheedge_tpu_torch.models.packnet import to_train_device
 from mindtheedge_tpu_torch.models.tasks import build_task
 from mindtheedge_tpu_torch.training.checkpoint import (
-    ModelCheckpoint, load_checkpoint, restore_depth_net, restore_train_state)
+    ModelCheckpoint, load_checkpoint, restore_depth_net, restore_pose_net,
+    restore_train_state)
 from mindtheedge_tpu_torch.training.train_step import create_train_state, make_train_step
 from mindtheedge_tpu_torch.utils.depth import (
     DEPTH_METRIC_NAMES, compute_depth_metrics, inv2depth, post_process_inv_depth)
@@ -128,18 +129,28 @@ class Experiment:
 
     # -- state --------------------------------------------------------------------
     def initialize_state(self):
-        """The network in training mode on the device, restored from the
-        resume checkpoint (network, optimizer, scheduler, epoch, step) or
-        else from ``model.depth_net.checkpoint_path`` where that file
-        exists (every matching entry, running statistics included)."""
+        """The depth network in training mode on the device, and the pose
+        network where the task has one, restored from the resume checkpoint
+        (networks, optimizer, scheduler, epoch, step) or else from
+        ``model.depth_net.checkpoint_path`` and
+        ``model.pose_net.checkpoint_path`` where those files exist (every
+        matching entry, running statistics included).  The pose network's
+        file is the reference's (``setup_pose_net``); the JAX package
+        reads only the depth network's."""
         net = to_train_device(self.task.depth_net, self.device)
-        path = self.config.model.depth_net.checkpoint_path
-        if not self.resume_ckpt and path:
-            if os.path.exists(path):
-                restore_depth_net(net, load_checkpoint(path))
-            else:
-                print(f'{path} not found: training from the seeded initialisation')
-        self.state = create_train_state(self.config, net)
+        pose_net = self.task.pose_net
+        if not self.resume_ckpt:
+            for model, cfg, restore in (
+                    (net, self.config.model.depth_net, restore_depth_net),
+                    (pose_net, self.config.model.pose_net, restore_pose_net)):
+                if model is None or not cfg.checkpoint_path:
+                    continue
+                if os.path.exists(cfg.checkpoint_path):
+                    restore(model, load_checkpoint(cfg.checkpoint_path))
+                else:
+                    print(f'{cfg.checkpoint_path} not found: training from the '
+                          'seeded initialisation')
+        self.state = create_train_state(self.config, net, pose_net=pose_net)
         if self.resume_ckpt:
             restore_train_state(self.state, load_checkpoint(self.resume_ckpt))
             print(f'Resumed from {self.resume_ckpt} at epoch {self.state.epoch}, '

@@ -15,6 +15,16 @@ def flip_lr(x):
     return torch.flip(x, dims=(2,))
 
 
+def gradient_x(x):
+    """x[:, :, :-1] - x[:, :, 1:] over the width of [B,H,W,C] (``image.py:16-18``)."""
+    return x[:, :, :-1] - x[:, :, 1:]
+
+
+def gradient_y(x):
+    """x[:, :-1] - x[:, 1:] over the height of [B,H,W,C] (``image.py:21-22``)."""
+    return x[:, :-1] - x[:, 1:]
+
+
 def rgb_to_gray(x):
     """ITU-R 601 luma as in the reference GradLayer (``grad_loss.py:56-63``)."""
     coeffs = torch.tensor([65.738, 129.057, 25.064], dtype=x.dtype,

@@ -11,6 +11,11 @@ PackNetSAN01 names.  Layouts:
 * GroupNorm scale/bias     -> weight/bias
 * MaskedBatchNorm          -> bn.weight/bias/running_mean/running_var
 * SAN kernel [kh,kw,I,O]   -> [K^2,I,O], first (row) coordinate fastest
+
+``pose_state_dict_from_jax`` and ``resnet_state_dict_from_jax`` do the
+same for ``PoseNet``, ``PoseResNet`` and ``DepthResNet``, whose flax
+BatchNorm ``scale/bias/mean/var`` become ``weight/bias/running_mean/
+running_var``.
 """
 
 import numpy as np
@@ -124,4 +129,73 @@ def state_dict_from_jax(params, batch_stats=None):
                    None if batch_stats is None else batch_stats['mconvs'])
     sd['weight'] = _t(params['weight'])
     sd['bias'] = _t(params['bias'])
+    return sd
+
+
+def flax_batch_norm(sd, name, p, stats):
+    """flax BatchNorm {bn: {scale, bias}} + batch_stats {bn: {mean, var}}
+    -> ``{name}.weight/bias/running_mean/running_var``."""
+    sd[f'{name}.weight'] = _t(p['bn']['scale'])
+    sd[f'{name}.bias'] = _t(p['bn']['bias'])
+    if stats is not None:
+        sd[f'{name}.running_mean'] = _t(stats['bn']['mean'])
+        sd[f'{name}.running_var'] = _t(stats['bn']['var'])
+        sd[f'{name}.num_batches_tracked'] = torch.tensor(0)
+
+
+def resnet_encoder(sd, name, p, stats):
+    """ResnetEncoder {conv1, bn1, layer{s}_{b}} -> ``{name}.encoder.*``
+    (torchvision names)."""
+    st = (lambda k: None) if stats is None else stats.get
+    sd[f'{name}.encoder.conv1.weight'] = _conv2d(p['conv1']['kernel'])
+    flax_batch_norm(sd, f'{name}.encoder.bn1', p['bn1'], st('bn1'))
+    for key, block in p.items():
+        if not key.startswith('layer'):
+            continue
+        stage, b = key[len('layer'):].split('_')
+        base = f'{name}.encoder.layer{stage}.{b}'
+        bst = (lambda k: None) if stats is None else stats[key].get
+        for sub, val in block.items():
+            if sub == 'downsample_conv':
+                sd[f'{base}.downsample.0.weight'] = _conv2d(val['kernel'])
+            elif sub == 'downsample_bn':
+                flax_batch_norm(sd, f'{base}.downsample.1', val, bst(sub))
+            elif sub.startswith('conv'):
+                sd[f'{base}.{sub}.weight'] = _conv2d(val['kernel'])
+            else:
+                flax_batch_norm(sd, f'{base}.{sub}', val, bst(sub))
+
+
+def resnet_state_dict_from_jax(params, batch_stats=None):
+    """JAX ``DepthResNet`` or ``PoseResNet`` ``params`` (+ ``batch_stats``)
+    -> the port's ``state_dict`` (reference monodepth2 names)."""
+    sd = {}
+    resnet_encoder(sd, 'encoder', params['encoder'],
+                   None if batch_stats is None else batch_stats['encoder'])
+    dec = params['decoder']
+    if 'squeeze_0' in dec:          # PoseDecoder
+        for j, key in enumerate(('squeeze_0', 'pose_0', 'pose_1', 'pose_2')):
+            conv(sd, f'decoder.net.{j}', dec[key])
+        return sd
+    for j, i in enumerate(range(4, -1, -1)):
+        for k in (0, 1):
+            conv(sd, f'decoder.decoder.{2 * j + k}.conv.conv', dec[f'upconv_{i}_{k}']['conv'])
+    for s in range(4):
+        conv(sd, f'decoder.decoder.{10 + s}.conv', dec[f'dispconv_{s}']['conv'])
+    return sd
+
+
+def pose_state_dict_from_jax(params, batch_stats=None):
+    """JAX ``PoseNet`` or ``PoseResNet`` ``params`` (+ ``batch_stats``) ->
+    the port's ``state_dict``: PoseNet's layers under the reference names
+    ``conv{i}.0`` (conv), ``conv{i}.1`` (GroupNorm) and ``pose_pred``."""
+    if 'pose_pred' not in params:
+        return resnet_state_dict_from_jax(params, batch_stats)
+    sd = {}
+    for key, p in params.items():
+        if key == 'pose_pred':
+            conv(sd, 'pose_pred', p)
+        else:
+            conv(sd, f'{key}.0', p['conv'])
+            group_norm(sd, f'{key}.1', p['norm'])
     return sd

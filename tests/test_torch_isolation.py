@@ -30,7 +30,10 @@ def _import_all_with_blocked(blocked):
                  'losses.grad_loss', 'losses.supervised', 'losses.loss_base',
                  'models.model_utils', 'utils.image', 'utils.profiling',
                  'utils.wandb_logger', 'data.datasets', 'data.loader',
-                 'data.transforms', 'evaluation.edge_metrics', 'evaluation.chamfer'):
+                 'data.transforms', 'evaluation.edge_metrics', 'evaluation.chamfer',
+                 'geometry.pose', 'geometry.camera', 'losses.photometric',
+                 'models.posenet', 'models.resnet', 'data.kitti_dataset',
+                 'data.kitti_utils'):
         assert f'mindtheedge_tpu_torch.{name}' in names
     code = ("import sys, importlib\n"
             f"for b in {list(blocked)!r}:\n"

@@ -144,18 +144,24 @@ def test_unported_options_raise():
         bad.merge_from_list([key, value])
         with pytest.raises(NotImplementedError, match=item):
             tasks.build_task(bad, device='cpu')
+    for key, value in (('model.name', 'GenericSfmModel'),
+                       ('model.name', 'GenericSelfSupModel'),
+                       ('model.depth_net.name', 'RaySurfaceResNet')):
+        bad = cfg.clone()
+        bad.merge_from_list([key, value])
+        with pytest.raises(NotImplementedError, match='item 26'):
+            tasks.build_task(bad, device='cpu')
     bad = cfg.clone()
-    bad.model.name = 'SelfSupModel'
-    with pytest.raises(KeyError, match='items 16 and 22'):
+    bad.model.name = 'NoSuchModel'
+    with pytest.raises(KeyError, match='SelfSupModel'):
         tasks.build_task(bad, device='cpu')
-    # the default supervised_loss_weight 0.9 needs the photometric loss
-    task = tasks.build_task(cfg, device='cpu')
-    with pytest.raises(NotImplementedError, match='item 16'):
-        task.train_loss({})
+    # the default supervised_loss_weight 0.9 runs the photometric loss,
+    # which needs a pose network
+    with pytest.raises(ValueError, match='model.pose_net.name'):
+        tasks.build_task(cfg, device='cpu').check_trainable()
     dee = cfg.clone()
     dee.model.name = 'EdgeEstimationLIDARModel'
-    with pytest.raises(NotImplementedError, match='item 21'):
-        tasks.build_task(dee, device='cpu').train_loss({})
+    tasks.build_task(dee, device='cpu').check_trainable()
 
 
 def test_build_task_without_cuda_raises(monkeypatch, tmp_path):

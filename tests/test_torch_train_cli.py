@@ -1,15 +1,23 @@
 """The port's training CLI (``mindtheedge_tpu_torch.cli.train_edges.main``,
-``device='cpu'``) on the synthetic GTA split of tests/make_synthetic_dataset
-against the JAX package's ``Experiment.fit`` on the same split, config and
-starting weights.
+``device='cpu'``) against the JAX package's ``Experiment.fit`` on the same
+split, config and starting weights:
 
-4 frames at 64x96, batch 2, channels (16,)*6, 2 epochs, StepLR every epoch,
-jitter off, dropout 0, ``flip_lr_prob`` 0, validation on the same 4 frames.
-Both sides start from one JAX-format checkpoint named by
-``model.depth_net.checkpoint_path``.  The per-epoch mean losses agree
-within rtol 1e-2: one Adam step already moves the few parameters whose
-gradient lies inside fp32 noise by +-lr on either side
-(tests/test_torch_train_step.py).
+* ``SemiSupEdgeModel`` (the paper's) and ``EdgeEstimationLIDARModel`` (DEE)
+  for 2 epochs each on the synthetic GTA split of
+  tests/make_synthetic_dataset;
+* ``SemiSupModel`` at ``supervised_loss_weight`` 0.9 with ``PoseNet`` for 1
+  epoch on the synthetic KITTI tree of ``test_torch_train_cuda.write_kitti_tree``, one back
+  and one forward context frame, through ``KITTIDataset``.
+
+4 frames at 64x96 (6 on the KITTI tree, 4 with full context), batch 2,
+channels (16,)*6, StepLR every epoch, jitter off, dropout 0,
+``flip_lr_prob`` 0.  Both sides start from one JAX-format checkpoint named
+by ``model.depth_net.checkpoint_path``; the port reads the pose network's
+from ``model.pose_net.checkpoint_path``, and the JAX side, which reads no
+pose checkpoint, gets the same pose parameters set into its state before
+``fit``.  The per-epoch mean losses agree within rtol 1e-2: one Adam step
+already moves the few parameters whose gradient lies inside fp32 noise by
++-lr on either side (tests/test_torch_train_step.py).
 """
 
 import json
@@ -31,8 +39,10 @@ from mindtheedge_tpu.training.state import split_variables
 from mindtheedge_tpu.utils.torch_port import port_packnet_san
 from mindtheedge_tpu_torch import config
 from mindtheedge_tpu_torch.cli import train_edges
-from mindtheedge_tpu_torch.training.checkpoint import load_checkpoint
+from mindtheedge_tpu_torch.training.checkpoint import load_checkpoint, restore_train_state
 from mindtheedge_tpu_torch.training.experiment import Experiment
+from mindtheedge_tpu_torch.training.train_step import create_train_state
+from tests.test_torch_train_cuda import write_kitti_tree
 from tests.make_synthetic_dataset import make_dataset
 from tests.test_torch_blocks import perturb
 
@@ -43,14 +53,14 @@ H, W = 64, 96
 LR = 1e-3
 
 
-def train_config(split, ckpt_dir, init_ckpt):
+def train_config(split, ckpt_dir, init_ckpt, model='SemiSupEdgeModel'):
     """The JAX package's config of the run (``tests/test_end_to_end_training.py``
     at channels (16,)*6, deterministic)."""
     cfg = jconfig.get_cfg_defaults()
     cfg.name = 'synthetic'
     cfg.arch.max_epochs = 2
     cfg.arch.dp_devices = 1
-    cfg.model.name = 'SemiSupEdgeModel'
+    cfg.model.name = model
     cfg.model.depth_net.name = 'PackNetSAN01'
     cfg.model.depth_net.version = '1A'
     cfg.model.depth_net.channels = CHANNELS
@@ -114,6 +124,45 @@ def ckpts(ckpt_dir):
     return sorted(f for f in os.listdir(ckpt_dir) if f.endswith('.ckpt'))
 
 
+def kitti_config(root, split, ckpt_dir, init_ckpt, pose_ckpt):
+    """``SemiSupModel`` at w 0.9 with PoseNet on the KITTI tree: 1 epoch,
+    one back and one forward context frame, ground-truth depth, no LiDAR;
+    validation on the same frames."""
+    cfg = train_config(split, ckpt_dir, init_ckpt, model='SemiSupModel')
+    cfg.arch.max_epochs = 1
+    cfg.model.loss.supervised_loss_weight = 0.9
+    cfg.model.pose_net.name = 'PoseNet'
+    cfg.model.pose_net.checkpoint_path = pose_ckpt
+    cfg.edges.depth_edges_metric_log = False
+    cfg.checkpoint.monitor = 'loss'
+    for mode in ('train', 'validation'):
+        ds = cfg.datasets[mode]
+        ds.dataset, ds.path, ds.split = ['KITTI'], [root], [split]
+        ds.input_depth_type = ['']
+    cfg.datasets.train.back_context = cfg.datasets.train.forward_context = 1
+    return jconfig.prepare_config(cfg)
+
+
+def write_pose_checkpoint(path):
+    """A JAX-format checkpoint holding perturbed PoseNet parameters alone."""
+    from mindtheedge_tpu.models.posenet import PoseNet
+    image = np.zeros((1, H, W, 3), np.float32)
+    params = jax.tree_util.tree_map(np.asarray, jax.jit(lambda k: PoseNet().init(
+        k, image, [image, image]))(jax.random.PRNGKey(3)))['params']
+    params = perturb(params, np.random.RandomState(3))
+    state = types.SimpleNamespace(epoch=0, step=0, params={'pose': params},
+                                  batch_stats={}, opt_state=())
+    jsave_checkpoint(str(path), train_config('', '', ''), state)
+    return str(path), params
+
+
+def port_yaml(jcfg, path):
+    cfg = config.get_cfg_defaults()
+    cfg.merge_from_other_cfg(jcfg.to_dict())
+    cfg.save_yaml(path)
+    return path
+
+
 @pytest.fixture(scope='module')
 def runs(tmp_path_factory):
     root = tmp_path_factory.mktemp('train')
@@ -121,13 +170,40 @@ def runs(tmp_path_factory):
     init = write_init_checkpoint(root / 'init.ckpt')
     jdir, pdir = str(root / 'jax'), str(root / 'port')
     JaxExperiment(train_config(split, jdir, init)).fit()
-    cfg = config.get_cfg_defaults()
-    cfg.merge_from_other_cfg(train_config(split, pdir, init).to_dict())
-    yaml_path = str(root / 'port.yaml')
-    cfg.save_yaml(yaml_path)
+    yaml_path = port_yaml(train_config(split, pdir, init), str(root / 'port.yaml'))
     exp = train_edges.main([yaml_path], device='cpu')
     return dict(root=root, split=split, init=init, jdir=jdir, pdir=pdir,
                 yaml=yaml_path, exp=exp)
+
+
+@pytest.fixture(scope='module')
+def dee_runs(runs):
+    """DEE for 2 epochs on the same split and starting weights."""
+    root = runs['root']
+    jdir, pdir = str(root / 'dee_jax'), str(root / 'dee_port')
+    jcfg = lambda d: train_config(runs['split'], d, runs['init'],
+                                  model='EdgeEstimationLIDARModel')
+    JaxExperiment(jcfg(jdir)).fit()
+    exp = train_edges.main([port_yaml(jcfg(pdir), str(root / 'dee.yaml'))], device='cpu')
+    return dict(jdir=jdir, pdir=pdir, exp=exp)
+
+
+@pytest.fixture(scope='module')
+def kitti_runs(runs):
+    """``SemiSupModel`` with PoseNet for 1 epoch on a 6-frame KITTI tree."""
+    root = runs['root']
+    tree = str(root / 'kitti')
+    split = write_kitti_tree(tree, n_frames=6, h=H, w=W, no_gt=())
+    pose_ckpt, pose_params = write_pose_checkpoint(root / 'pose.ckpt')
+    jdir, pdir = str(root / 'kitti_jax'), str(root / 'kitti_port')
+    jcfg = lambda d: kitti_config(tree, split, d, runs['init'], pose_ckpt)
+    jexp = JaxExperiment(jcfg(jdir))
+    jexp.initialize_state(next(iter(jexp.train_loader)))
+    jexp.state = jexp.state.replace(params=dict(jexp.state.params, pose=pose_params))
+    jexp.fit()
+    yaml_path = port_yaml(jcfg(pdir), str(root / 'kitti.yaml'))
+    exp = train_edges.main([yaml_path], device='cpu')
+    return dict(jdir=jdir, pdir=pdir, exp=exp, yaml=yaml_path)
 
 
 def test_epoch_losses_match_jax(runs):
@@ -222,7 +298,6 @@ def test_train_without_cuda_raises(runs, monkeypatch):
     ('arch.precision', 'bfloat16', 'item 9'),
     ('model.depth_net.remat', True, 'item 23'),
     ('arch.dp_devices', 2, 'item 19'),
-    ('model.loss.supervised_loss_weight', 0.9, 'item 16'),
     ('checkpoint.s3_path', 's3://bucket/run', 'item 25'),
     ('wandb.dry_run', False, 'item 25'),
 ])
@@ -240,10 +315,65 @@ def test_unported_options_raise_before_work(runs, tmp_path, key, value, item):
     assert not (tmp_path / 'ck').exists() or not ckpts(str(tmp_path / 'ck'))
 
 
-def test_kitti_dataset_raises(runs, tmp_path):
+def test_photometric_without_pose_net_raises_before_work(runs, tmp_path):
+    """Below ``supervised_loss_weight`` 1 the task runs the photometric
+    loss, which needs a pose network: without ``model.pose_net.name`` the
+    CLI raises before any training step."""
     cfg = config.get_cfg_defaults()
     cfg.merge_from_other_cfg(train_config(runs['split'], str(tmp_path / 'ck'),
                                           runs['init']).to_dict())
-    cfg.datasets.train.dataset = ['KITTI']
-    with pytest.raises(NotImplementedError, match='item 24'):
-        Experiment(cfg, device='cpu')
+    cfg.model.loss.supervised_loss_weight = 0.9
+    path = str(tmp_path / 'nopose.yaml')
+    cfg.save_yaml(path)
+    with pytest.raises(ValueError, match='model.pose_net.name'):
+        train_edges.main([path], device='cpu')
+    assert not (tmp_path / 'ck').exists() or not ckpts(str(tmp_path / 'ck'))
+
+
+def test_dee_epoch_losses_match_jax(dee_runs):
+    got, want = epoch_losses(dee_runs['pdir']), epoch_losses(dee_runs['jdir'])
+    assert len(got) == len(want) == 2
+    np.testing.assert_allclose(got, want, rtol=1e-2)
+    assert shape_of(ckpts(dee_runs['pdir'])) == shape_of(ckpts(dee_runs['jdir']))
+    assert dee_runs['exp'].state.pose_net is None
+
+
+def train_metrics(ckpt_dir):
+    with open(os.path.join(ckpt_dir, 'metrics.jsonl')) as f:
+        rows = [json.loads(line) for line in f]
+    return {k: v for r in rows for k, v in r.items() if k.startswith('train/')}
+
+
+def test_kitti_selfsup_epoch_matches_jax(kitti_runs):
+    """The epoch's mean loss, photometric, smoothness and supervised terms
+    (rtol 1e-2) and its checkpoint names."""
+    got, want = train_metrics(kitti_runs['pdir']), train_metrics(kitti_runs['jdir'])
+    keys = {'train/loss', 'train/photometric_loss', 'train/smoothness_loss',
+            'train/supervised_loss', 'train/grad_norm'}
+    assert keys <= set(got) and keys <= set(want)
+    for k in keys:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-2, err_msg=k)
+    assert shape_of(ckpts(kitti_runs['pdir'])) == shape_of(ckpts(kitti_runs['jdir']))
+    assert kitti_runs['exp'].state.step == 2
+
+
+def test_kitti_checkpoint_holds_and_restores_the_pose_net(kitti_runs):
+    """The checkpoint holds ``model.pose_net.`` keys beside
+    ``model.depth_net.``, bit-equal to the trained networks, and a resume
+    restores both networks and the pose group's Adam state."""
+    state = kitti_runs['exp'].state
+    path = os.path.join(kitti_runs['pdir'], ckpts(kitti_runs['pdir'])[-1])
+    ckpt = load_checkpoint(path)
+    pose = {k: v for k, v in ckpt['state_dict'].items() if k.startswith('model.pose_net.')}
+    assert set(pose) == {f'model.pose_net.{k}' for k in state.pose_net.state_dict()}
+    for k, v in state.pose_net.state_dict().items():
+        assert torch.equal(pose[f'model.pose_net.{k}'], v), k
+    assert len(ckpt['optimizer']['param_groups']) == 2
+    cfg, _ = config.parse_train_file(kitti_runs['yaml'])
+    exp = Experiment(cfg, load_datasets=False, device='cpu')
+    fresh = create_train_state(cfg, exp.task.depth_net, pose_net=exp.task.pose_net)
+    restored = restore_train_state(fresh, ckpt)
+    for a, b in zip(state.parameters(), restored.parameters()):
+        assert torch.equal(a, b)
+    assert restored.optimizer.param_groups[1]['lr'] == state.optimizer.param_groups[1]['lr']
+    assert len(restored.optimizer.state) == len(state.optimizer.state)
