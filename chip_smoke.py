@@ -13,8 +13,10 @@ Run from the repository root, on a machine with one CUDA card and nvcc.
    >= 99.99 % of pixels agree, every pixel of the patch, and kept values
    are bit-equal.
 3. Run a small PackNet-SAN 1A (channels (16,)*6, 64x96, batch 2, LiDAR) on
-   the card and on the CPU with the same weights: all 4 scales at rtol 1e-4,
-   atol 1e-5, TF32 off.
+   the card and on the CPU with the same weights, both built by
+   ``serve.build``: all 4 scales at rtol 1e-4, atol 1e-5 (fp32, TF32 off,
+   as ``models.packnet.to_device`` sets it; no phase sets a backend flag
+   of its own).
    Then ``annotate_batch`` of the DEE path, card vs CPU on the same
    network and inputs: edge maps within 1e-4 on >= 99.9 % of pixels per
    scale,
@@ -92,6 +94,18 @@ Run from the repository root, on a machine with one CUDA card and nvcc.
       ``PoseNet`` at batch 2 through
       ``KITTIDataset`` (4 frames with both context frames) and validation;
       the checkpoint holds the pose network and reloads bit-equal.
+9. The KITTI-DE evaluation end to end: a synthetic tree of 115 frames (the
+   size of KITTI-DE's split) at KITTI's 375x1242 written to
+   ``build/eval_smoke/`` by ``write_split`` (RGB, uint16 GT depth, GT edges,
+   LiDAR), then ``python -m mindtheedge_tpu_torch.cli.infer_edges`` with
+   ``configs/infer_packnet_kitti.yaml`` (only its split, GT lists and output
+   folder replaced: inference at 384x1280, batch 4, u16 wire, then the
+   depth metrics, D3R and the edge AUC over 12 Canny thresholds) in a fresh
+   process; the NMS kernel must launch 0 times there.  Fails unless the CLI
+   exits 0 having written 115 depth maps and colour PNGs, finite mean depth
+   metrics and both AUCs in [0, 1], with the g++-built native matcher.
+   Prints the wall seconds and frames/s of inference, of the depth metrics
+   and D3R, and of the edge AUC, the AUCs and the mean depth metrics.
 
 Prints one line per phase, each phase's wall time, then the card's name
 and power limit, a JSON line of the kernels, and as its last line
@@ -99,8 +113,9 @@ and power limit, a JSON line of the kernels, and as its last line
 device it exits nonzero and prints no result.
 """
 
-import copy
 import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -126,7 +141,8 @@ from tests.test_torch_annotate_cuda import (
 from tests.test_torch_train_cuda import write_kitti_tree
 from tests.test_torch_nms_kernel import dyadic_patch, gaussian_blur, misaligned
 from tests.test_torch_train_cuda import (
-    TASKS, kitti_intrinsics, photometric_card_vs_cpu, train_step_card_vs_cpu)
+    PHOTOMETRIC_BOUND, TASKS, kitti_intrinsics, photometric_card_vs_cpu, photometric_gap_causes,
+    train_step_card_vs_cpu)
 
 KERNELS = ('nms_kernel',)
 B, H, W = 4, 384, 1280
@@ -141,6 +157,11 @@ TRAIN_B, TRAIN_WARMUP, TRAIN_STEPS = 3, 2, 5   # 10 steps until phase 8 joined
 SMOKE_DIR = 'build/train_smoke'
 KITTI_DIR = 'build/train_smoke_kitti'
 KITTI_H, KITTI_W = 96, 320
+EVAL_CONFIG = 'configs/infer_packnet_kitti.yaml'
+EVAL_DIR = 'build/eval_smoke'
+EVAL_FRAMES = 115                       # KITTI-DE's split, kitti_115_split.txt
+EVAL_H, EVAL_W = 375, 1242              # KITTI's frames and GT
+EVAL_THRESHOLDS = 12                    # Canny thresholds 20..240 of the protocol
 
 
 def check(ok, what):
@@ -234,7 +255,7 @@ def phase_kernel_vs_plain(dev):
 
 def phase_small_slice(dev):
     cpu_model = serve.build((16,) * 6, device='cpu', seed=1)
-    card_model = copy.deepcopy(cpu_model).to(dev)
+    card_model = serve.build((16,) * 6, device=dev, seed=1)
     rng = np.random.RandomState(1)
     rgb_u8 = torch.from_numpy(rng.randint(0, 256, (2, 64, 96, 3)).astype(np.uint8))
     lidar = rng.rand(2, 64, 96, 1).astype(np.float32) * 80.0
@@ -735,10 +756,14 @@ def phase_train_small_tasks(dev):
               f'{worst["grad_vs_max"]:.3e} of its tensor\'s largest |gradient| (bound '
               f'{bound}); worst parameter error after the Adam step '
               f'{worst["param_vs_lr"]:.3e} lr (bound 1e-2); running stats within rtol 1e-4')
+    print('phase 8a photometric gradient gap card vs cpu by cause (worst error over its '
+          'tensor\'s largest |gradient|, zeros / border padding): '
+          + '; '.join(f'{case} {gaps["zeros"]:.3e} / {gaps["border"]:.3e}'
+                      for case, gaps in photometric_gap_causes(dev).items()))
     worst = photometric_card_vs_cpu(dev)
     print(f'phase 8a photometric loss card vs cpu [2,64,96], 4 scales, 2 contexts, zeros '
           f'and border padding: values within rtol 1e-5, worst gradient error {worst:.3e} '
-          f'of its tensor\'s largest |gradient| (bound 3e-4)')
+          f'of its tensor\'s largest |gradient| (bound {PHOTOMETRIC_BOUND:g})')
 
 
 def phase_train_dee(dev):
@@ -767,7 +792,6 @@ def phase_train_selfsup(dev):
 
 
 def phase_train_kitti_cli(dev):
-    import os
     import shutil
     shutil.rmtree(KITTI_DIR, ignore_errors=True)
     tree = os.path.join(KITTI_DIR, 'kitti')
@@ -810,7 +834,6 @@ def write_split(root, n, h, w, seed=0):
     depth, edges and normals with their ``_001..003`` scales, uint16
     LiDAR), written with cv2 -> the split file."""
     import cv2
-    import os
     rng = np.random.RandomState(seed)
     os.makedirs(root, exist_ok=True)
     scenes = blocky_scene(rng, n, h, w, 'cpu').numpy()
@@ -841,7 +864,6 @@ def write_split(root, n, h, w, seed=0):
 
 
 def phase_train_cli(dev):
-    import os
     import shutil
     shutil.rmtree(SMOKE_DIR, ignore_errors=True)
     split, val = write_split(os.path.join(SMOKE_DIR, 'data'), 4, H, W)
@@ -876,6 +898,113 @@ def phase_train_cli(dev):
           f'{steps.pop()}')
 
 
+# a fresh interpreter runs the CLI as ``python -m`` does, then reports the
+# NMS kernel's launches in that process
+EVAL_RUNNER = ("import runpy, sys\n"
+               "from mindtheedge_tpu_torch.ops.cuda import nms_kernel\n"
+               "sys.argv = ['infer_edges'] + sys.argv[1:]\n"
+               "nms_kernel.launches = 0\n"
+               "runpy.run_module('mindtheedge_tpu_torch.cli.infer_edges', run_name='__main__')\n"
+               "print(f'NMS launches {nms_kernel.launches}')\n")
+
+
+def native_files():
+    """{path: mtime} of ``native/``, where the JAX package builds its matcher
+    and the port must not."""
+    return {os.path.join(d, f): os.stat(os.path.join(d, f)).st_mtime_ns
+            for d, _, names in os.walk('native') for f in names}
+
+
+def eval_config(split, gt_list, edge_list, folder):
+    """``configs/infer_packnet_kitti.yaml`` with its split, its GT lists and
+    its output folder replaced, written next to the data -> its path."""
+    import yaml
+    with open(EVAL_CONFIG) as f:
+        cfg = yaml.safe_load(f)
+    cfg['datasets']['test']['split'] = [split]
+    cfg['analysis']['gt_image_list'] = gt_list
+    cfg['analysis']['edge_image_list'] = edge_list
+    cfg['save']['folder'] = folder
+    check(cfg['analysis']['run_metrics'] and cfg['analysis']['run_heavy_edge_metrics'],
+          f'{EVAL_CONFIG} no longer asks for both metrics')
+    path = os.path.join(EVAL_DIR, 'infer_packnet_kitti.yaml')
+    with open(path, 'w') as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def phase_eval():
+    """The KITTI-DE evaluation end to end: ``infer_edges`` with the shipped
+    config on a synthetic 115-frame tree, in a fresh process -> the NMS
+    kernel's launches there."""
+    import shutil
+    shutil.rmtree(EVAL_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    split, _ = write_split(os.path.join(EVAL_DIR, 'data'), EVAL_FRAMES, EVAL_H, EVAL_W, seed=9)
+    with open(split) as f:
+        rows = [ln.split(' ') for ln in f.read().splitlines()]
+    lists = []
+    for name, col in (('gt_depth.txt', 1), ('gt_edges.txt', 2)):
+        lists.append(os.path.join(EVAL_DIR, name))
+        with open(lists[-1], 'w') as f:
+            f.writelines(r[col] + '\n' for r in rows)
+    out_dir = os.path.join(EVAL_DIR, 'out')
+    yaml_path = eval_config(split, *lists, out_dir)
+    native_before = native_files()
+    write_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, '-c', EVAL_RUNNER, '--config', yaml_path,
+                           '--batch', str(B), '--wire', 'u16'],
+                          capture_output=True, text=True, timeout=900)
+    wall_s = time.perf_counter() - t0
+    with open(os.path.join(EVAL_DIR, 'cli.log'), 'w') as f:
+        f.write(proc.stdout + proc.stderr)
+    check(proc.returncode == 0, f'infer_edges exited {proc.returncode}: '
+          f'{(proc.stdout + proc.stderr)[-3000:]}')
+    log = proc.stdout
+
+    def number(pattern):
+        found = re.search(pattern, log)
+        check(found is not None, f'infer_edges printed no line matching {pattern!r}')
+        return float(found.group(1))
+
+    n = EVAL_FRAMES
+    infer_s = number(rf'Inference of {n} frames: ([\d.]+) s')
+    depth_s = number(rf'Depth metrics and D3R of {n} frames: ([\d.]+) s')
+    auc_s = number(rf'Edge AUC of {n} frames at {EVAL_THRESHOLDS} thresholds, native '
+                   r'matcher: ([\d.]+) s')
+    d3r = number(r'D3R ordinal: ([\d.]+)')
+    launches = int(number(r'NMS launches (\d+)'))
+    files = os.listdir(out_dir)
+    n_npy = sum(f.endswith('_regular.npy') for f in files)
+    n_color = sum(f.endswith('_regular_color.png') for f in files)
+    check(n_npy == n_color == EVAL_FRAMES, f'{n_npy} depth maps, {n_color} colour PNGs')
+    with open(os.path.join(out_dir, 'mean_frames_depth_metrics.csv')) as f:
+        lines = f.read().splitlines()
+    check(lines[0] == ',0' and len(lines) == 8, f'depth metrics CSV {lines}')
+    means = {k: float(v) if v else float('nan') for k, v in (ln.split(',') for ln in lines[1:])}
+    check(all(np.isfinite(v) for v in means.values()), f'depth metrics {means}')
+    with open(os.path.join(out_dir, 'edge_AUC.txt')) as f:
+        aucs = [float(ln.split(': ')[1]) for ln in f.read().splitlines()]
+    check(len(aucs) == 2 and all(0.0 <= a <= 1.0 for a in aucs), f'edge AUCs {aucs}')
+    check(native_files() == native_before, 'the port wrote into native/')
+    jpegs = len(os.listdir(os.path.join(out_dir, 'temp_output')))
+    check(jpegs == EVAL_FRAMES, f'{jpegs} Canny JPEGs')
+    print(f'phase 9 KITTI-DE evaluation, {EVAL_FRAMES} frames, GT {EVAL_H}x{EVAL_W}, inference '
+          f'{H}x{W} b{B} fp32 (u16 wire) with {EVAL_CONFIG}: synthetic tree written in '
+          f'{write_s:.1f} s; the CLI in a fresh process {wall_s:.1f} s wall: inference '
+          f'{infer_s:.3f} s ({EVAL_FRAMES / infer_s:.2f} frames/s), depth metrics and D3R '
+          f'{depth_s:.3f} s ({EVAL_FRAMES / depth_s:.2f} frames/s), edge AUC over '
+          f'{EVAL_THRESHOLDS} thresholds x {EVAL_FRAMES} frames on the native matcher '
+          f'{auc_s:.3f} s ({EVAL_FRAMES / auc_s:.2f} frames/s); evaluation throughput '
+          f'{EVAL_FRAMES / (infer_s + depth_s + auc_s):.3f} frames/s; nms launches {launches}')
+    print(f'phase 9 results (random weights): edge AUC full {aucs[0]}, partial {aucs[1]}; '
+          f'D3R ordinal {d3r}; mean depth metrics '
+          + ', '.join(f'{k} {v}' for k, v in means.items()))
+    return launches
+
+
 def card_line():
     out = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
@@ -888,8 +1017,6 @@ def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 1
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device('cuda')
     t0 = time.perf_counter()
     print(f'torch {torch.__version__} cuda {torch.version.cuda} on '
@@ -925,6 +1052,8 @@ def main():
         launches8 += nms_kernel.launches
     print(f'NMS launches on the phase-8 training paths (DEE, completion, '
           f'self-supervised): {launches8}')
+    launches9 = timed('9', phase_eval)
+    check(launches9 == 0, f'NMS kernel launched {launches9} times on the evaluation path')
     print('phase wall times (s): ' + ', '.join(f'{k} {v:.1f}' for k, v in walls.items()))
     print(f'chip_smoke wall time {time.perf_counter() - t0:.1f} s')
     card = card_line()
@@ -933,10 +1062,11 @@ def main():
         'name': 'nms_sobel5', 'route': 'cuda',
         'source': 'mindtheedge_tpu_torch/csrc/nms_kernel.cu',
         'replaces': 'mindtheedge_tpu/ops/pallas/nms_kernel.py:111',
-        'launches': launches4 + launches5 + launches6 + launches7 + launches8,
+        'launches': launches4 + launches5 + launches6 + launches7 + launches8 + launches9,
         'launches_by_path': {'serve': launches4, 'annotate': launches5,
                              'infer': launches6, 'train': launches7,
-                             'train_dee_completion_selfsup': launches8},
+                             'train_dee_completion_selfsup': launches8,
+                             'eval': launches9},
         'max_abs_err': max(err2, err4, err5),
         'mismatched_px': bad2 + bad4 + bad5,
         'checked_px': px2 + prob.numel() + px5,

@@ -1,4 +1,5 @@
-"""Batched depth inference over a split file, on one card.
+"""Batched depth inference over a split file, on one card, then the
+evaluation on the host.
 
 Counterpart of ``mindtheedge_tpu/cli/infer_edges.py``::
 
@@ -7,21 +8,27 @@ Counterpart of ``mindtheedge_tpu/cli/infer_edges.py``::
 
 Outputs, as there (reference ``infer_edges.py:349-366``): per image
 ``{idx:08d}_regular.npy`` (metric depth), ``_regular.png`` (depth/max*255),
-``_regular_color.png`` (log-depth Spectral colour map), and
-``pred_list.txt``.  ``infer_batch`` is the device work of one batch: the
+``_regular_color.png`` (log-depth Spectral colour map, ``utils/colormap``),
+and ``pred_list.txt``.  ``infer_batch`` is the device work of one batch: the
 sparse LiDAR uplink is scattered to the dense map, the network runs, and the
 depth leaves the card in the ``--wire`` format.  Uploads and read-backs are
 pipelined two batches deep through pinned host buffers, so the host never
 waits for the batch the card is running.
 
-Not ported here: the depth and edge-AUC metrics (``analysis.run_metrics``,
-``analysis.run_heavy_edge_metrics``; ROADMAP Slice D) and multi-device
-serving (``--spatial``, ``--dp``; Slice E).  Asking for either exits before
-any work.  The card is used unless ``main`` is given ``device='cpu'``.
+Then ``run_post_metrics`` (``infer_edges.py:405-442``): with
+``analysis.run_metrics``, the depth metrics (``mean_frames_depth_metrics.csv``,
+``sfm_analysis/<out_file_name>``) and D3R; with
+``analysis.run_heavy_edge_metrics``, the edge AUC (``edge_AUC.txt``, the
+Canny JPEGs in ``temp_output/``, the PR plot where matplotlib exists).
+
+Not ported here: multi-device serving (``--spatial``, ``--dp``; ROADMAP
+Slice E), which exits before any work.  The card is used unless ``main`` is
+given ``device='cpu'``.
 """
 
 import argparse
 import os
+import time
 
 import numpy as np
 import torch
@@ -29,6 +36,7 @@ import torch
 from mindtheedge_tpu_torch.config import get_cfg_defaults, parse_test_file, prepare_config
 from mindtheedge_tpu_torch.models.tasks import build_task
 from mindtheedge_tpu_torch.ops import wire
+from mindtheedge_tpu_torch.utils.colormap import spectral_u8
 from mindtheedge_tpu_torch.utils.depth import inv2depth
 
 _ENCODERS = {'u16': wire.encode_depth_u16, 'u8': wire.encode_depth_u8,
@@ -59,16 +67,12 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def _refuse_unported(args, cfg):
+def _refuse_unported(args):
     """Exit before any work where the run asks for what is not ported."""
     if (args.spatial or '0').strip().lower() not in ('0', '1', '1x1') \
             or args.dp > 1:
         raise SystemExit('--spatial / --dp (multi-device serving) are not '
                          'ported yet: ROADMAP Slice E')
-    if cfg.analysis.run_metrics or cfg.analysis.run_heavy_edge_metrics:
-        raise SystemExit('analysis.run_metrics / run_heavy_edge_metrics '
-                         '(depth and edge-AUC metrics) are not ported yet: '
-                         'ROADMAP Slice D; set both to False')
 
 
 def _read_inputs(line, config, image_shape):
@@ -128,18 +132,12 @@ def save_depth_outputs(pred_depth, out_base):
                 (pred / max(pred.max(), 1e-12)) * 255)
     # always written: pred_list.txt points at it (infer_edges.py:113-123)
     np.save(out_base + '_regular.npy', pred)
-    # log-depth Spectral colormap
-    import matplotlib as mpl
-    import matplotlib.cm as cm
-    import matplotlib.pyplot as plt
+    # log-depth Spectral colour map
     from PIL import Image
     depth_log = np.log(np.clip(pred, 1e-12, None))
     depth_log = depth_log - depth_log.min()
     depth_log = depth_log / max(depth_log.max(), 1e-12)
-    mapper = cm.ScalarMappable(norm=mpl.colors.Normalize(0.0, 1.0),
-                               cmap=plt.get_cmap('Spectral'))
-    colormapped = (mapper.to_rgba(depth_log)[:, :, :3] * 255).astype(np.uint8)
-    Image.fromarray(colormapped).save(out_base + '_regular_color.png')
+    Image.fromarray(spectral_u8(depth_log)).save(out_base + '_regular_color.png')
 
 
 @torch.no_grad()
@@ -193,7 +191,7 @@ def main(argv=None, device=None):
     else:
         print(f'WARNING: checkpoint {ckpt_path!r} not found — random init '
               '(smoke/benchmark mode)')
-    _refuse_unported(args, cfg)
+    _refuse_unported(args)
 
     image_shape = tuple(cfg.datasets.augmentation.image_shape) or None
     task = build_task(cfg, device, ckpt)
@@ -212,6 +210,7 @@ def main(argv=None, device=None):
 
     pred_files = []
     counter = 0
+    t0 = time.perf_counter()
 
     def drain(entry):
         nonlocal counter
@@ -255,10 +254,83 @@ def main(argv=None, device=None):
     for entry in in_flight:
         drain(entry)
     print(f'Processed {counter}/{len(lines)}')
+    print(f'Inference of {counter} frames: {time.perf_counter() - t0:.3f} s')
 
     with open(os.path.join(cfg.save.folder, 'pred_list.txt'), 'w') as f:
         f.writelines(p + '\n' for p in pred_files)
+
+    run_post_metrics(cfg, pred_files)
     print('-> Done!')
+
+
+def run_post_metrics(cfg, pred_files):
+    """The depth metrics and D3R, then the edge AUC, on the host, as the
+    config asks (``infer_edges.py:405-442``); each part prints its wall
+    time."""
+    an = cfg.analysis
+    if an.run_metrics and an.gt_image_list:
+        from mindtheedge_tpu_torch.evaluation.d3r import d3r_metric
+        from mindtheedge_tpu_torch.evaluation.depth_analyzer import (
+            DensePredictionAnalyzer, DepthEvalLoader, run_analysis, write_mean_csv)
+        t0 = time.perf_counter()
+        pred_list_path = os.path.join(cfg.save.folder, 'pred_list.txt')
+        image_list = an.gt_image_list   # images only used for shape/debug
+        loader = DepthEvalLoader(image_list, an.gt_image_list, pred_list_path)
+        analyzer = DensePredictionAnalyzer(an)
+        rows = run_analysis(loader, analyzer, cfg)
+        csv_path = os.path.join(cfg.save.folder, 'mean_frames_depth_metrics.csv')
+        write_mean_csv(rows, csv_path)
+        print(f'Depth metrics -> {csv_path}')
+        scores = []
+        for i in range(len(loader)):
+            _, gt, d = loader[i]
+            scores.append(d3r_metric(gt, d))
+        print(f'D3R ordinal: {np.mean(scores):.4f}')
+        print(f'Depth metrics and D3R of {len(loader)} frames: '
+              f'{time.perf_counter() - t0:.3f} s')
+
+    if an.run_heavy_edge_metrics and an.edge_image_list:
+        from mindtheedge_tpu_torch.evaluation.edge_auc import edge_auc
+        t0 = time.perf_counter()
+        with open(an.edge_image_list) as f:
+            gt_list = f.read().splitlines()
+        result = edge_auc(gt_list, pred_files,
+                          prec_range=(an.prec_recall_eval_range_min,
+                                      an.prec_recall_eval_range_max),
+                          gt_crop=an.gt_crop,
+                          min_depth=an.min_depth, max_depth=an.max_depth,
+                          save_folder=os.path.join(cfg.save.folder, 'temp_output'))
+        auc_path = os.path.join(cfg.save.folder, 'edge_AUC.txt')
+        with open(auc_path, 'w') as f:
+            f.write(f"AUC over all range: {result['auc_full']}\n")
+            f.write(f"AUC over partial range: {result['auc_partial']}\n")
+        print(f"Edge AUC full={result['auc_full']:.4f} "
+              f"partial={result['auc_partial']:.4f} -> {auc_path}")
+        print(f"Edge AUC of {len(pred_files)} frames at "
+              f"{len(result['precision'])} thresholds, {result['matcher']} "
+              f'matcher: {time.perf_counter() - t0:.3f} s')
+        plot_edge_graph(result['precision'], result['recall'],
+                        os.path.join(cfg.save.folder, 'edge_pr_curve.png'))
+
+
+def plot_edge_graph(precision, recall, save_file_path):
+    """PR-curve plot (``infer_edges.py:445-462``, reference
+    ``infer_edges.py:218-234``); skipped where matplotlib is absent."""
+    try:
+        import matplotlib
+        matplotlib.use('Agg')
+        import matplotlib.pyplot as plt
+        fig, ax = plt.subplots(figsize=(15, 10))
+        ax.plot(precision, recall, marker='o')
+        ax.set_xlabel('precision')
+        ax.set_ylabel('recall')
+        ax.set_xlim(0, 1)
+        ax.set_ylim(0, 1)
+        ax.grid(True)
+        fig.savefig(save_file_path)
+        plt.close(fig)
+    except Exception as e:
+        print(f'PR plot skipped: {e}')
 
 
 if __name__ == '__main__':

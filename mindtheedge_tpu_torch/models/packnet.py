@@ -189,30 +189,38 @@ def init_weights(model, seed=0):
     return model
 
 
+def _cuda_fp32(device):
+    """On CUDA, for the process: cuDNN's autotuner on, and TF32 off in convs
+    and matmuls."""
+    if device.type == 'cuda':
+        torch.backends.cudnn.benchmark = True
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
 def to_device(model, device=None):
     """``model`` in eval mode on ``device`` (``None`` -> CUDA, which must be
     present).  Every inference entry point builds its model through here.
 
-    On CUDA this turns on cuDNN's autotuner for the process
-    (``torch.backends.cudnn.benchmark``): cuDNN's heuristics pick an
+    On CUDA this sets, for the process, cuDNN's autotuner on
+    (``torch.backends.cudnn.benchmark``: cuDNN's heuristics pick an
     FFT-tiling algorithm for the 3x3 convs with 256 inputs at 48x160 that
-    made a batch-4 request 7x slower on an H100 (PERF.md).  The first
-    forward at each input shape pays for the tuning.
+    made a batch-4 request 7x slower on an H100, PERF.md; the first forward
+    at each input shape pays for the tuning) and TF32 off in convs and
+    matmuls: inference runs in strict fp32, the precision of the JAX
+    reference and of every parity test, until ROADMAP item 9 makes the
+    precision a config choice.  PyTorch's default lets cuDNN's convs run
+    in TF32.
     """
     device = resolve_device(device)
-    if device.type == 'cuda':
-        torch.backends.cudnn.benchmark = True
+    _cuda_fp32(device)
     return model.to(device).eval()
 
 
 def to_train_device(model, device=None):
     """``model`` in training mode on ``device``, for the training entry
-    points: as :func:`to_device`, cuDNN's autotuner on, and TF32 off in
-    convs and matmuls for the process, since training runs in strict fp32
-    (``arch.precision: float32``; bf16 waits for ROADMAP item 9)."""
+    points, with the settings of :func:`to_device`: training runs in strict
+    fp32 (``arch.precision: float32``; bf16 waits for ROADMAP item 9)."""
     device = resolve_device(device)
-    if device.type == 'cuda':
-        torch.backends.cudnn.benchmark = True
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+    _cuda_fp32(device)
     return model.to(device).train()

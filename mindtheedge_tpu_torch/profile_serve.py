@@ -61,8 +61,6 @@ def main():
                     help="let cuDNN's heuristics pick the conv algorithms "
                          "instead of the autotuner that serve.build turns on")
     args = ap.parse_args()
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device('cuda')
     model = serve.build(SLIM_CHANNELS, device=dev, seed=0)
     torch.backends.cudnn.benchmark = not args.cudnn_heuristics

@@ -102,8 +102,6 @@ def annotate_card_vs_cpu(dev, channels=(16,) * 6, shape=(2, 64, 96)):
 def cuda_card():
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA card and nvcc')
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device('cuda')
 
 

@@ -194,8 +194,6 @@ def test_inference_matches_jax_cli(inference, port_inference):
 
 
 @pytest.mark.parametrize('argv,analysis,slice_name', [
-    ([], {'run_metrics': True}, 'Slice D'),
-    ([], {'run_heavy_edge_metrics': True}, 'Slice D'),
     (['--spatial', '2'], {}, 'Slice E'),
     (['--dp', '2'], {}, 'Slice E'),
 ])

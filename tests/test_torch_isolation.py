@@ -33,7 +33,10 @@ def _import_all_with_blocked(blocked):
                  'data.transforms', 'evaluation.edge_metrics', 'evaluation.chamfer',
                  'geometry.pose', 'geometry.camera', 'losses.photometric',
                  'models.posenet', 'models.resnet', 'data.kitti_dataset',
-                 'data.kitti_utils'):
+                 'data.kitti_utils', 'evaluation.bsds_matcher', 'evaluation.edge_auc',
+                 'evaluation.d3r', 'evaluation.depth_analyzer', 'cli.eval_depth',
+                 'cli.eval_depth_edges', 'utils.colormap', 'utils.save', 'utils.reduce',
+                 'utils.misc', 'utils.logging'):
         assert f'mindtheedge_tpu_torch.{name}' in names
     code = ("import sys, importlib\n"
             f"for b in {list(blocked)!r}:\n"
@@ -52,10 +55,36 @@ def test_every_submodule_imports_with_jax_blocked():
 
 
 def test_every_submodule_imports_without_host_io_packages():
-    """The card's machine may lack matplotlib, cv2, yaml or PIL: the port
-    imports them only inside the host I/O functions that use them."""
+    """The card's machine may lack matplotlib, cv2, yaml, PIL or pandas: the
+    port imports them only inside the host I/O functions that use them."""
     _import_all_with_blocked(('jax', 'mindtheedge_tpu', 'matplotlib', 'cv2',
-                              'yaml', 'PIL'))
+                              'yaml', 'PIL', 'pandas'))
+
+
+def test_bsds_matcher_builds_nothing_under_native():
+    """The port's matcher reads ``native/bsds/matcher.cpp`` and builds into
+    ``build/native/``: importing and calling it in a fresh interpreter
+    leaves ``native/`` as it was, and the depth metrics run with pandas and
+    matplotlib blocked."""
+    native = ROOT / 'native'
+    before = {p: p.stat().st_mtime_ns for p in native.rglob('*')}
+    code = ("import sys\n"
+            "for b in ('jax', 'mindtheedge_tpu', 'pandas', 'matplotlib'):\n"
+            "    sys.modules[b] = None\n"
+            "import numpy as np\n"
+            "from mindtheedge_tpu_torch.evaluation import bsds_matcher as bm\n"
+            "from mindtheedge_tpu_torch.evaluation.depth_analyzer import column_means\n"
+            "m = np.eye(8, dtype=np.uint8)\n"
+            "assert bm.correspond_pixels(m, m, 0.01)[2] == 8.0\n"
+            "assert bm.binary_thin(m).sum() > 0\n"
+            "assert column_means([[0, 0.1, 0.2, 0.3, np.float32(1), np.float32(1), 1.0]])\n"
+            "print(bm.backend(), bm.library_path())\n")
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    backend, path = out.stdout.split()
+    assert backend == 'native' and Path(path).parent == ROOT / 'build' / 'native'
+    assert {p: p.stat().st_mtime_ns for p in native.rglob('*')} == before
 
 
 def test_sources_name_no_jax_import():

@@ -30,6 +30,7 @@ import pytest
 import torch
 
 from mindtheedge_tpu_torch.config import get_cfg_defaults
+from mindtheedge_tpu_torch.geometry.camera import view_synthesis
 from mindtheedge_tpu_torch.geometry.pose import pose_vec2mat
 from mindtheedge_tpu_torch.losses.photometric import multiview_photometric_loss
 from mindtheedge_tpu_torch.models.tasks import build_task
@@ -259,41 +260,88 @@ def train_step_card_vs_cpu(dev, channels=(16,) * 6, shape=(2, 64, 96), task=None
     return loss_h, loss_c, compare_states(card, host, before, noise_floor=floor)
 
 
-def photometric_card_vs_cpu(dev, shape=(2, 64, 96)):
-    """``multiview_photometric_loss`` (4 scales, two contexts, automask,
-    zeros and border padding) on the card and on the CPU, its gradients
-    with respect to the inverse depths and the pose vectors -> the worst
-    gradient error over its tensor's largest |gradient|.  Values rtol
-    1e-5, gradients within 3e-4 of their tensor's largest, the bound of
-    the training parity with JAX (measured on the card: 1.14e-4 with zeros
-    padding)."""
+def smooth_inverse_depths(rng, b, h, w):
+    """4 scales of a smooth inverse depth in [0.05, 0.5]: one channel of
+    ``smooth_images``, subsampled by 2 per scale."""
+    t = smooth_images(rng, 1, b, h, w)[0][..., :1]
+    return [np.ascontiguousarray(0.05 + 0.45 * t[:, ::2 ** s, ::2 ** s]) for s in range(4)]
+
+
+def photometric_gaps(dev, shape=(2, 64, 96), smooth_depth=False, part='loss'):
+    """``multiview_photometric_loss`` (4 scales, two contexts, automask) on
+    the card and on the CPU from the same inputs, its gradients with respect
+    to the inverse depths and the pose vectors -> {padding mode: the worst
+    gradient error over its tensor's largest |gradient|}.  The values agree
+    within rtol 1e-5.  Each pixel's inverse depth is drawn uniformly, so
+    warped coordinates land anywhere, near integers too, where the bilinear
+    sampler's derivative jumps; ``smooth_depth`` draws a smooth one
+    instead.  ``part``: 'loss' the photometric loss, 'mean' the same with
+    the contexts reduced by their mean instead of their minimum, 'warp' a
+    fixed random weighting of the warped context images at scale 0 (no
+    SSIM, L1 or reduction)."""
     b, h, w = shape
     rng = np.random.RandomState(2)
     image, *context = smooth_images(rng, 3, b, h, w)
-    inv = [rng.uniform(0.05, 0.5, (b, h >> s, w >> s, 1)).astype(np.float32) for s in range(4)]
+    inv = smooth_inverse_depths(rng, b, h, w) if smooth_depth else [
+        rng.uniform(0.05, 0.5, (b, h >> s, w >> s, 1)).astype(np.float32) for s in range(4)]
     vecs = np.concatenate([rng.uniform(-0.3, 0.3, (b, 2, 3)),
                            rng.uniform(-0.03, 0.03, (b, 2, 3))], -1).astype(np.float32)
     K = kitti_intrinsics(b, h, w)
-    worst = 0.0
+    weights = rng.randn(b, h, w, 3).astype(np.float32)
+    worst = {}
     for padding_mode in ('zeros', 'border'):
         sides = []
         for device in ('cpu', dev):
             t = lambda a: torch.from_numpy(np.array(a)).to(device)
             inv_t = [t(d).requires_grad_() for d in inv]
             vec_t = t(vecs).requires_grad_()
-            loss, _ = multiview_photometric_loss(
-                t(image), [t(c) for c in context], inv_t, t(K), t(K),
-                [pose_vec2mat(vec_t[:, i]) for i in range(2)], padding_mode=padding_mode)
+            poses = [pose_vec2mat(vec_t[:, i]) for i in range(2)]
+            if part == 'warp':
+                loss = sum((view_synthesis(t(c), 1.0 / inv_t[0], t(K), t(K), p,
+                                           padding_mode=padding_mode) * t(weights)).sum()
+                           for c, p in zip(context, poses))
+            else:
+                loss, _ = multiview_photometric_loss(
+                    t(image), [t(c) for c in context], inv_t, t(K), t(K), poses,
+                    padding_mode=padding_mode,
+                    photometric_reduce_op='min' if part == 'loss' else 'mean')
             loss.backward()
-            sides.append((float(loss.detach()), [x.grad.cpu() for x in inv_t + [vec_t]]))
+            grads = [x.grad for x in inv_t + [vec_t] if x.grad is not None]
+            sides.append((float(loss.detach()), [g.cpu() for g in grads]))
         (loss_h, grads_h), (loss_c, grads_c) = sides
         assert abs(loss_c - loss_h) <= 1e-5 * abs(loss_h), (loss_c, loss_h)
-        names = [f'inv_depth[{s}]' for s in range(4)] + ['pose vectors']
-        for name, gh, gc in zip(names, grads_h, grads_c):
-            err = float((gc - gh).abs().max()) / float(gh.abs().max())
-            assert err <= 3e-4, (padding_mode, name, err)
-            worst = max(worst, err)
+        worst[padding_mode] = max(float((gc - gh).abs().max()) / float(gh.abs().max())
+                                  for gh, gc in zip(grads_h, grads_c))
     return worst
+
+
+PHOTOMETRIC_BOUND = 3e-4
+
+
+def photometric_card_vs_cpu(dev, shape=(2, 64, 96)):
+    """``photometric_gaps``, zeros and border padding, held to
+    ``PHOTOMETRIC_BOUND`` of each tensor's largest gradient -> the worst."""
+    worst = photometric_gaps(dev, shape)
+    assert max(worst.values()) <= PHOTOMETRIC_BOUND, worst
+    return max(worst.values())
+
+
+def photometric_gap_causes(dev):
+    """The card-vs-CPU gradient gap of the photometric loss by cause ->
+    {case: {padding mode: worst}}: uniform against smooth inverse depths;
+    the loss, the loss with a mean in place of the min, and the warp alone
+    (``photometric_gaps``); cuDNN on and off (zeros padding with
+    ``align_corners=True`` makes ``F.grid_sample`` take cuDNN's sampler on
+    the card, border padding ATen's)."""
+    cases = {}
+    for smooth in (False, True):
+        for part in ('loss', 'mean', 'warp'):
+            for cudnn in (True, False):
+                with torch.backends.cudnn.flags(enabled=cudnn):
+                    cases[(f'{"smooth" if smooth else "uniform"} depth, {part}, '
+                           f'cudnn {"on" if cudnn else "off"}')] = photometric_gaps(
+                        dev, smooth_depth=smooth, part=part)
+    return cases
 
 
 # -- a synthetic KITTI raw tree (the layout of tests/test_kitti_dataset.py:33-71)
@@ -378,8 +426,6 @@ def write_kitti_tree(root, n_frames=6, h=8, w=16, seed=0, no_gt=(4,)):
 def cuda_card():
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA card')
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device('cuda')
 
 
