@@ -106,6 +106,29 @@ Run from the repository root, on a machine with one CUDA card and nvcc.
    metrics and both AUCs in [0, 1], with the g++-built native matcher.
    Prints the wall seconds and frames/s of inference, of the depth metrics
    and D3R, and of the edge AUC, the AUCs and the mean depth metrics.
+10. bf16 and activation recomputation, each bf16 phase on the weights and
+   inputs of its fp32 counterpart, its error printed beside its time.
+   a. Serving in bf16 (``serve.build(dtype=torch.bfloat16)``): phase 4's
+      requests, 2 warm-up and 10 timed; the NMS kernel launches once per
+      request, on the f32 map cast after the network, and agrees with its
+      plain version there; the depth's relative error against fp32
+      (median, p99, max) and the share of edge pixels that agree.
+   b. Annotation with ``configs/annotate_edges_kitti_training_set.yaml``
+      plus ``precision: bfloat16`` (4 launches a batch); the edge
+      agreement against fp32 at each scale.
+   c. Inference in bf16 (phase 6's path, no launch); the depth's error.
+   d. The shipped training yaml as written (bf16) on 7b's batch, weights
+      and generator seed: ms per step, peak, the parts, and the loss of
+      every step beside 7b's.
+   e. 7b's config with ``remat`` True, then ``'conv'``: ms per step and
+      peak against 7b's; one step of each against the step without remat
+      from the same weights and generator: the same dropout draws and
+      statistics counts, loss, gradients and running statistics within
+      4x the card's run-to-run noise, or 1e-4 (7a's tolerance).
+   f. At [2,64,96], (16,)*6: one bf16 ``train_step`` card vs CPU within 2x
+      the CPU's own bf16-vs-fp32 gap, and remat vs none on the card with
+      dropout and flip on (``tests/test_torch_train_cuda.py``).
+   No launch on the training phases.
 
 Prints one line per phase, each phase's wall time, then the card's name
 and power limit, a JSON line of the kernels, and as its last line
@@ -141,8 +164,9 @@ from tests.test_torch_annotate_cuda import (
 from tests.test_torch_train_cuda import write_kitti_tree
 from tests.test_torch_nms_kernel import dyadic_patch, gaussian_blur, misaligned
 from tests.test_torch_train_cuda import (
-    PHOTOMETRIC_BOUND, TASKS, kitti_intrinsics, photometric_card_vs_cpu, photometric_gap_causes,
-    train_step_card_vs_cpu)
+    BAND, GRAD_RTOL, PHOTOMETRIC_BOUND, TASKS, bf16_card_vs_cpu, kitti_intrinsics,
+    photometric_card_vs_cpu, photometric_gap_causes, remat_config, remat_vs_plain,
+    synthetic_batch, train_step_card_vs_cpu)
 
 KERNELS = ('nms_kernel',)
 B, H, W = 4, 384, 1280
@@ -153,6 +177,9 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12        # H100 SXM, fp32 outside the tensor cores
 NMS_FLOPS_PER_PX = 40           # separable Sobel-5 pair (32) + bucket tests
 TRAIN_CONFIG = 'configs/train_packnet_san_kitti_with_edges.yaml'
+ANNOTATE_CONFIG = 'configs/annotate_edges_kitti_training_set.yaml'
+SERVE_BF16_REQUESTS = 10        # phase 10a
+PRECISION = {torch.float32: 'fp32', torch.bfloat16: 'bf16'}
 TRAIN_B, TRAIN_WARMUP, TRAIN_STEPS = 3, 2, 5   # 10 steps until phase 8 joined
 SMOKE_DIR = 'build/train_smoke'
 KITTI_DIR = 'build/train_smoke_kitti'
@@ -293,17 +320,26 @@ def phase_small_slice(dev):
           + ' (scales 0-3); hysteresis bit-equal')
 
 
-def phase_serve(dev):
-    model = serve.build(SLIM_CHANNELS, device=dev, seed=0)
+def serve_requests(n):
+    """``n`` seeded full-width requests, pinned: uint8 rgb shifted by i,
+    set LiDAR points moved by i mm."""
     rng = np.random.RandomState(0)
     rgb_base = rng.randint(0, 256, (B, H, W, 3)).astype(np.int64)
     lidar_base = rng.rand(B, H, W, 1).astype(np.float32) * 80.0
     lidar_base[rng.rand(B, H, W, 1) < 0.95] = 0.0
-    requests = [
-        (torch.from_numpy(((rgb_base + i) % 256).astype(np.uint8)).pin_memory(),
-         torch.from_numpy(lidar_base + np.float32(i * 1e-3) * (lidar_base > 0)
-                          ).pin_memory())
-        for i in range(WARMUP + REQUESTS)]
+    return [(torch.from_numpy(((rgb_base + i) % 256).astype(np.uint8)).pin_memory(),
+             torch.from_numpy(lidar_base + np.float32(i * 1e-3) * (lidar_base > 0)
+                              ).pin_memory())
+            for i in range(n)]
+
+
+def phase_serve(dev, dtype=torch.float32, timed=REQUESTS, label='phase 4'):
+    """``WARMUP`` + ``timed`` requests through ``serve.serve`` of the model
+    built in ``dtype`` -> (NMS launches, the last request's probability
+    map, its NMS mismatches against the plain version, max |err|, the
+    model, the requests, mean ms per request)."""
+    model = serve.build(SLIM_CHANNELS, device=dev, seed=0, dtype=dtype)
+    requests = serve_requests(WARMUP + timed)
 
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -325,8 +361,8 @@ def phase_serve(dev):
             wall_ms.append((time.perf_counter() - t0) * 1e3)
     launches = nms_kernel.launches
     peak = torch.cuda.max_memory_allocated()
-    check(launches == WARMUP + REQUESTS,
-          f'NMS kernel launched {launches} times in {WARMUP + REQUESTS} requests')
+    check(launches == len(requests),
+          f'NMS kernel launched {launches} times in {len(requests)} requests')
 
     check(depth_host.dtype == torch.uint16 and depth_host.shape == (B, H, W),
           f'depth wire {depth_host.dtype} {tuple(depth_host.shape)}')
@@ -338,29 +374,29 @@ def phase_serve(dev):
           f'depth out of range [{float(depth.min())}, {float(depth.max())}]')
     check(edge_share < 0.5, f'edge share {edge_share}')
     mean_ms = float(np.mean(device_ms))
-    print(f'phase 4 serve 384x1280 b{B} fp32: {REQUESTS} requests after '
+    print(f'{label} serve 384x1280 b{B} {PRECISION[dtype]}: {timed} requests after '
           f'{WARMUP} warm-up, {mean_ms:.3f} ms/batch on the device '
           f'(min {min(device_ms):.3f}, max {max(device_ms):.3f}; host wall '
           f'{float(np.mean(wall_ms)):.3f}), {B * 1e3 / mean_ms:.2f} img/s, '
           f'peak {peak / 2**30:.3f} GiB (warm-up with cuDNN autotuning '
           f'{tuning_peak / 2**30:.3f} GiB), nms launches {launches} '
-          f'({launches / (WARMUP + REQUESTS):g} per request), depth '
+          f'({launches / len(requests):g} per request), depth '
           f'[{float(depth.min()):.3f}, {float(depth.max()):.3f}] m, '
           f'edge share {edge_share:.4f}')
 
-    # the kernel on the probability map the main path gave it
+    # the kernel on the probability map the main path gave it (f32)
     rgb_u8, lidar = requests[-1]
     with torch.no_grad():
-        inv = model(rgb_u8.to(dev).float() / 255.0, lidar.to(dev))[
-            'inv_depths'][0][..., 0]
+        inv = model((rgb_u8.to(dev).float() / 255.0).to(dtype), lidar.to(dev, dtype))[
+            'inv_depths'][0][..., 0].float()
     prob = torch.clamp(inv / 2.0, 0.0, 1.0)
     bad, err = compare_nms(prob)
     check(bad <= 1e-4 * prob.numel(), f'NMS on the served map: {bad} mismatches')
     kept = (edge_ops.non_max_suppression(prob) > 0).float().mean().item()
     check(0.0 < kept < 1.0, f'NMS kept {kept} of the served map')
-    print(f'phase 4 nms kernel vs plain on the served map: {bad} of '
+    print(f'{label} nms kernel vs plain on the served map: {bad} of '
           f'{prob.numel()} pixels differ, max |err| {err}; NMS keeps {kept:.4f}')
-    return launches, prob, bad, err
+    return launches, prob, bad, err, model, requests, mean_ms
 
 
 def profiled_kernel_us(fn, iters):
@@ -448,11 +484,10 @@ def frames(seed, i, scale_lidar=1.0):
     return rgb.pin_memory(), lidar.pin_memory()
 
 
-def phase_annotate(dev, kernel_ms):
-    """The DEE annotation path at full width -> (launches, checked pixels,
-    mismatches, max |err|)."""
-    task = build_task(task_config('EdgeEstimationLIDARModel'), device=dev)
-    batches = [frames(5, i, 1.0 / 200.0) for i in range(WARMUP + REQUESTS)]
+def annotate_run(dev, task, timed, label):
+    """``WARMUP`` + ``timed`` full-width batches through ``annotate_batch``
+    -> (NMS launches, the batches, the last batch's results, mean ms)."""
+    batches = [frames(5, i, 1.0 / 200.0) for i in range(WARMUP + timed)]
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     nms_kernel.launches = 0
@@ -487,8 +522,8 @@ def phase_annotate(dev, kernel_ms):
     counts = [r['hysteresis'] for r in results]
     syncs = sum(c for _, c in counts) + 2 * SCALES
     mean_ms = float(np.mean(device_ms))
-    print(f'phase 5 annotate 384x1280 b{B} fp32, 4 scales, NMS + hysteresis + '
-          f'normals: {REQUESTS} batches after {WARMUP} warm-up, '
+    print(f'{label} annotate 384x1280 b{B} {PRECISION[task.compute_dtype]}, 4 scales, '
+          f'NMS + hysteresis + normals: {timed} batches after {WARMUP} warm-up, '
           f'{mean_ms:.3f} ms/batch by CUDA events (min {min(device_ms):.3f}, '
           f'max {max(device_ms):.3f}; host wall {float(np.mean(wall_ms)):.3f}), '
           f'{B * 1e3 / mean_ms:.2f} img/s, peak {peak / 2**30:.3f} GiB, nms '
@@ -496,6 +531,14 @@ def phase_annotate(dev, kernel_ms):
           f'hysteresis (iterations, checks) per scale {counts}, host syncs '
           f'per batch {syncs} ({syncs - 2 * SCALES} hysteresis checks + '
           f'{2 * SCALES} read-backs)')
+    return launches, batches, results, mean_ms
+
+
+def phase_annotate(dev, kernel_ms):
+    """The DEE annotation path at full width -> (launches, checked pixels,
+    mismatches, max |err|)."""
+    task = build_task(task_config('EdgeEstimationLIDARModel'), device=dev)
+    launches, batches, _, mean_ms = annotate_run(dev, task, REQUESTS, 'phase 5')
 
     # the last batch again, outside the counted run: each scale's kernel
     # output against the plain version, and hysteresis card vs CPU
@@ -546,18 +589,18 @@ def phase_annotate(dev, kernel_ms):
     return launches, px, bad, max_err
 
 
-def phase_infer(dev):
+def infer_run(dev, task, timed, label):
     """The batch-inference path at full width, sparse uint16 LiDAR up and
     uint16 depth down, through the CLI's own upload and read-back; the
     timed batches run with torch's sync debug mode on 'error', so any host
-    sync on the path fails the phase -> NMS launches (none on this path)."""
-    task = build_task(task_config('SemiSupEdgeModel'), device=dev)
+    sync on the path fails the phase -> (NMS launches, the last batch's rgb
+    and LiDAR, its depth on the wire, mean ms)."""
     cap = H * W // 8
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     nms_kernel.launches = 0
     device_ms, encode_ms = [], []
-    for i in range(WARMUP + REQUESTS):
+    for i in range(WARMUP + timed):
         rgb, lidar = frames(6, i)
         t0 = time.perf_counter()
         pairs = [wire.encode_lidar_sparse(l.numpy(), cap) for l in lidar]
@@ -582,18 +625,25 @@ def phase_infer(dev):
     depth = wire.decode_depth_u16(depth_host)
     check(bool(torch.isfinite(depth).all()) and float(depth.min()) >= 0.5,
           f'depth out of range [{float(depth.min())}, {float(depth.max())}]')
-    dense = infer_batch(task, rgb.to(dev), lidar.to(dev), 'u16').cpu()
-    codes = int((dense.to(torch.int64) - depth_host.to(torch.int64)).abs().max())
-    check(codes <= 1, f'sparse vs dense uplink: u16 codes differ by {codes}')
     mean_ms = float(np.mean(device_ms))
-    print(f'phase 6 infer 384x1280 b{B} fp32, sparse u16 LiDAR up ({cap} '
-          f'slots a frame), u16 depth down: {REQUESTS} batches after {WARMUP} '
-          f'warm-up, no host sync on the path (sync debug mode), '
+    print(f'{label} infer 384x1280 b{B} {PRECISION[task.compute_dtype]}, sparse u16 '
+          f'LiDAR up ({cap} slots a frame), u16 depth down: {timed} batches after '
+          f'{WARMUP} warm-up, no host sync on the path (sync debug mode), '
           f'{mean_ms:.3f} ms/batch by CUDA events (min {min(device_ms):.3f}, '
           f'max {max(device_ms):.3f}), {B * 1e3 / mean_ms:.2f} img/s; host '
           f'sparse encode {float(np.mean(encode_ms)):.3f} ms/batch; depth '
-          f'[{float(depth.min()):.3f}, {float(depth.max()):.3f}] m; u16 codes '
-          f'within {codes} of the dense float32 uplink; nms launches {launches}')
+          f'[{float(depth.min()):.3f}, {float(depth.max()):.3f}] m; nms launches {launches}')
+    return launches, (rgb, lidar), depth_host, mean_ms
+
+
+def phase_infer(dev):
+    """Phase 6 -> NMS launches (none on this path)."""
+    task = build_task(task_config('SemiSupEdgeModel'), device=dev)
+    launches, (rgb, lidar), depth_host, _ = infer_run(dev, task, REQUESTS, 'phase 6')
+    dense = infer_batch(task, rgb.to(dev), lidar.to(dev), 'u16').cpu()
+    codes = int((dense.to(torch.int64) - depth_host.to(torch.int64)).abs().max())
+    check(codes <= 1, f'sparse vs dense uplink: u16 codes differ by {codes}')
+    print(f'phase 6 u16 codes within {codes} of the dense float32 uplink')
     return launches
 
 
@@ -686,8 +736,9 @@ def stage_ms(task, state, batch, gen):
 
 def train_full(dev, cfg, batch, label):
     """``TRAIN_WARMUP`` + ``TRAIN_STEPS`` full-width training steps of the
-    task of ``cfg`` on ``batch`` -> (mean ms per step, peak bytes, rows of
-    metrics, the step's parts timed alone, a summary line)."""
+    task of ``cfg`` on ``batch``, from the weights and generator of
+    ``cfg.arch.seed`` -> (mean ms per step, peak bytes, the loss of every
+    step, warm-ups first)."""
     task = build_task(cfg, device=dev)
     net = to_train_device(task.depth_net, dev)
     state = create_train_state(cfg, net, pose_net=task.pose_net)
@@ -695,8 +746,7 @@ def train_full(dev, cfg, batch, label):
     gen = torch.Generator(dev).manual_seed(cfg.arch.seed)
     params = state.parameters()
     torch.cuda.reset_peak_memory_stats()
-    for _ in range(TRAIN_WARMUP):
-        step(state, batch, gen)
+    warm = [step(state, batch, gen)['loss'] for _ in range(TRAIN_WARMUP)]
     torch.cuda.synchronize()
     tuning_peak = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -721,7 +771,8 @@ def train_full(dev, cfg, batch, label):
           f'{label}: {moved} parameter tensors and {stats_moved} running statistics moved')
     mean_ms = float(np.mean(step_ms))
     stages = stage_ms(task, state, batch, gen)
-    line = (f'{label} {H}x{W} b{TRAIN_B} fp32 (TF32 off), {sum(p.numel() for p in params)} '
+    line = (f'{label} {H}x{W} b{TRAIN_B} {PRECISION[task.compute_dtype]} (TF32 off), remat '
+            f'{cfg.model.depth_net.remat!r}, {sum(p.numel() for p in params)} '
             f'parameters, dropout {cfg.model.depth_net.dropout}, flip '
             f'{cfg.model.loss.flip_lr_prob}: {TRAIN_STEPS} steps after {TRAIN_WARMUP} '
             f'warm-up, {mean_ms:.3f} ms/step by CUDA events (min {min(step_ms):.3f}, '
@@ -739,7 +790,7 @@ def train_full(dev, cfg, batch, label):
           + ', '.join(f'{k} {stages[k]:.3f} ({100 * stages[k] / total:.1f} %)' for k in main)
           + f'; sum {total:.3f} vs {mean_ms:.3f} per step in the run'
           + ''.join(f'; {k} alone {v:.3f}' for k, v in stages.items() if k not in main))
-    return mean_ms, peak
+    return mean_ms, peak, [float(v) for v in warm] + [r['loss'] for r in rows]
 
 
 def phase_train_full(dev):
@@ -1005,6 +1056,133 @@ def phase_eval():
     return launches
 
 
+def rel_err_quantiles(got, want):
+    """(median, p99, max) of |got - want| / want over the pixels where
+    ``want`` > 0."""
+    keep = want > 0
+    err = ((got - want).abs()[keep] / want[keep]).double()
+    return float(err.median()), float(torch.quantile(err, 0.99)), float(err.max())
+
+
+def edge_agreement(got, want):
+    """Of the pixels that are an edge in either map, the share that are an
+    edge in both."""
+    a, b = got > 0, want > 0
+    return float((a & b).sum()) / max(float((a | b).sum()), 1.0)
+
+
+def phase_serve_bf16(dev):
+    """10a: phase 4's requests and weights, the model cast once to bf16 ->
+    (NMS launches, the served map, mismatches, max |err|, mean ms)."""
+    launches, prob, bad, err, model16, requests, mean_ms = phase_serve(
+        dev, torch.bfloat16, SERVE_BF16_REQUESTS, 'phase 10a')
+    model32 = serve.build(SLIM_CHANNELS, device=dev, seed=0)
+    rgb_u8, lidar = requests[-1]
+    rgb, lidar = rgb_u8.to(dev).float() / 255.0, lidar.to(dev)
+    out32 = serve.depth_edges(model32, rgb, lidar)
+    out16 = serve.depth_edges(model16, rgb.bfloat16(), lidar.bfloat16())
+    check(out16['depth'].dtype == torch.float32 and bool(torch.isfinite(out16['depth']).all()),
+          'bf16 served depth not finite fp32')
+    med, p99, worst = rel_err_quantiles(out16['depth'], out32['depth'])
+    agree = edge_agreement(out16['edges'], out32['edges'])
+    same_px = float(((out16['edges'] > 0) == (out32['edges'] > 0)).float().mean())
+    check(med < 0.05 and agree > 0.5, f'bf16 serving: depth median error {med}, edges {agree}')
+    print(f'phase 10a bf16 vs fp32 on the last request: depth relative error median '
+          f'{med:.3e}, p99 {p99:.3e}, max {worst:.3e} (pixels with depth > 0); edge '
+          f'pixels agree on {agree:.4f} of those that are an edge in either map, all '
+          f'pixels on {same_px:.5f}; {mean_ms:.3f} ms/request in bf16')
+    return launches, prob, bad, err
+
+
+def phase_annotate_bf16(dev):
+    """10b: ``configs/annotate_edges_kitti_training_set.yaml`` plus
+    ``precision: bfloat16`` -> NMS launches."""
+    cfg = get_cfg_defaults()
+    cfg.merge_from_file(ANNOTATE_CONFIG)
+    cfg16 = cfg.clone()
+    cfg16.arch.precision = 'bfloat16'
+    launches, batches, results16, _ = annotate_run(
+        dev, build_task(cfg16, device=dev), REQUESTS, 'phase 10b')
+    rgb, lidar = batches[-1]
+    results32 = annotate_batch(build_task(cfg, device=dev), rgb.to(dev), lidar.to(dev))
+    agree = [edge_agreement(a['edge'], b['edge']) for a, b in zip(results16, results32)]
+    check(min(agree) > 0.3, f'bf16 annotation: edges agree on {agree}')
+    print(f'phase 10b bf16 vs fp32 ({ANNOTATE_CONFIG}, same weights, last batch): edge '
+          f'pixels agree on ' + ', '.join(f'{a:.4f}' for a in agree)
+          + ' of those that are an edge in either map (scales 0-3)')
+    return launches
+
+
+def phase_infer_bf16(dev):
+    """10c: phase 6's network and batches in bf16 -> NMS launches."""
+    cfg = task_config('SemiSupEdgeModel')
+    cfg.arch.precision = 'bfloat16'
+    task16 = build_task(cfg, device=dev)
+    launches, (rgb, lidar), _, _ = infer_run(dev, task16, REQUESTS, 'phase 10c')
+    task32 = build_task(task_config('SemiSupEdgeModel'), device=dev)
+    rgb, lidar = rgb.to(dev), lidar.to(dev)
+    depth16 = infer_batch(task16, rgb, lidar, 'f32')
+    med, p99, worst = rel_err_quantiles(depth16, infer_batch(task32, rgb, lidar, 'f32'))
+    check(depth16.dtype == torch.float32 and med < 0.05, f'bf16 inference: median error {med}')
+    print(f'phase 10c bf16 vs fp32 on the last batch (dense float32 uplink): depth '
+          f'relative error median {med:.3e}, p99 {p99:.3e}, max {worst:.3e}')
+    return launches
+
+
+def phase_train_bf16(dev, losses32):
+    """10d: the shipped training config as written (bf16) on 7b's batch,
+    from 7b's weights and generator seed."""
+    cfg = get_cfg_defaults()
+    cfg.merge_from_file(TRAIN_CONFIG)
+    check(cfg.arch.precision == 'bfloat16' and not cfg.model.depth_net.remat,
+          f'{TRAIN_CONFIG} is no longer bf16 without remat')
+    _, _, losses16 = train_full(dev, cfg, full_width_batch(dev), 'phase 10d bf16 train')
+    print('phase 10d loss by step, bf16 (as shipped) / fp32 (7b), same weights, batch '
+          'and generator: ' + ', '.join(f'{a:.6f} / {b:.6f}' for a, b in zip(losses16, losses32)))
+
+
+def phase_train_remat(dev, ms32, peak32):
+    """10e: 7b's config and batch with ``remat`` True, then ``'conv'``;
+    then one step of each from the same weights and generator against the
+    step without remat."""
+    batch = full_width_batch(dev)
+    configs = {False: train_config()}
+    for remat in (True, 'conv'):
+        configs[remat] = cfg = train_config()
+        cfg.model.depth_net.remat = remat
+        ms, peak, _ = train_full(dev, cfg, batch, f'phase 10e remat {remat!r} train')
+        print(f'phase 10e remat {remat!r}: {ms:.3f} ms/step ({ms / ms32:.3f} x 7b\'s '
+              f'{ms32:.3f}), peak {peak / 2**30:.3f} GiB ({peak / peak32:.3f} x 7b\'s '
+              f'{peak32 / 2**30:.3f})')
+    gaps, bound, noise = remat_vs_plain(dev, configs, batch)
+    print(f'phase 10e one step against the step without remat, same weights and '
+          f'generator: worst (loss, gradient median / max over its tensor\'s largest, '
+          f'running statistics median / max) ' + '; '.join(
+              f'{r!r} {g["loss"]:.3e}, {g["grad"][0]:.3e} / {g["grad"][1]:.3e}, '
+              f'{g["stats"][0]:.3e} / {g["stats"][1]:.3e}' for r, g in gaps.items())
+          + f'; the same draws; bound {bound:.3e} (4 x the noise of two steps without '
+          f'remat, {max(noise["loss"], *noise["grad"], *noise["stats"]):.3e}, at least '
+          f'{GRAD_RTOL:g}, 7a\'s gradient tolerance)')
+
+
+def phase_small_bf16_remat(dev):
+    """10f: one bf16 step card vs CPU; remat against no remat on the card,
+    dropout and flip on, both at [2,64,96]."""
+    got, ref = bf16_card_vs_cpu(dev)
+    fmt = lambda g: (f'loss {g["loss"]:.3e}, gradients {g["grad"][0]:.3e} / {g["grad"][1]:.3e}, '
+                     f'running statistics {g["stats"][0]:.3e} / {g["stats"][1]:.3e}')
+    print(f'phase 10f bf16 train_step card vs cpu [2,64,96] (16,)*6 (median / max): '
+          f'{fmt(got)}; within {BAND:g} x the CPU\'s bf16 vs fp32: {fmt(ref)}')
+    small = synthetic_batch(np.random.RandomState(0), 2, 64, 96)
+    gaps, bound, noise = remat_vs_plain(
+        dev, {r: remat_config(r) for r in (False, True, 'conv')}, small)
+    print(f'phase 10f remat train_step on the card vs without, dropout 0.5, flip 0.5, '
+          f'SemiSupEdgeCompletionModel [2,64,96]: ' + '; '.join(
+              f'{r!r} {fmt(g)}' for r, g in gaps.items())
+          + f'; generator state and num_batches_tracked equal; noise of two steps without '
+          f'remat {fmt(noise)}; bound {bound:.3e}')
+
+
 def card_line():
     out = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
@@ -1032,13 +1210,13 @@ def main():
     timed('1', phase_build)
     px2, bad2, err2 = timed('2', phase_kernel_vs_plain, dev)
     timed('3', phase_small_slice, dev)
-    launches4, prob, bad4, err4 = timed('4', phase_serve, dev)
+    launches4, prob, bad4, err4, *_ = timed('4', phase_serve, dev)
     kernel_ms, plain_ms, bound_ms, bound_by = timed('nms timing', time_nms, prob)
     launches5, px5, bad5, err5 = timed('5', phase_annotate, dev, kernel_ms)
     launches6 = timed('6', phase_infer, dev)
     nms_kernel.launches = 0
     timed('7a', phase_train_small, dev)
-    timed('7b', phase_train_full, dev)
+    ms7b, peak7b, losses7b = timed('7b', phase_train_full, dev)
     timed('7c', phase_train_cli, dev)
     launches7 = nms_kernel.launches
     check(launches7 == 0, f'NMS kernel launched {launches7} times on the training path')
@@ -1054,6 +1232,19 @@ def main():
           f'self-supervised): {launches8}')
     launches9 = timed('9', phase_eval)
     check(launches9 == 0, f'NMS kernel launched {launches9} times on the evaluation path')
+    launches10a, prob10, bad10, err10 = timed('10a', phase_serve_bf16, dev)
+    launches10b = timed('10b', phase_annotate_bf16, dev)
+    launches10c = timed('10c', phase_infer_bf16, dev)
+    check(launches10c == 0, f'NMS kernel launched {launches10c} times on the bf16 inference path')
+    launches10 = {}
+    for name, fn, args in (('10d', phase_train_bf16, (dev, losses7b)),
+                           ('10e', phase_train_remat, (dev, ms7b, peak7b)),
+                           ('10f', phase_small_bf16_remat, (dev,))):
+        nms_kernel.launches = 0
+        timed(name, fn, *args)
+        launches10[name] = nms_kernel.launches
+        check(launches10[name] == 0,
+              f'NMS kernel launched {launches10[name]} times in phase {name}')
     print('phase wall times (s): ' + ', '.join(f'{k} {v:.1f}' for k, v in walls.items()))
     print(f'chip_smoke wall time {time.perf_counter() - t0:.1f} s')
     card = card_line()
@@ -1062,14 +1253,18 @@ def main():
         'name': 'nms_sobel5', 'route': 'cuda',
         'source': 'mindtheedge_tpu_torch/csrc/nms_kernel.cu',
         'replaces': 'mindtheedge_tpu/ops/pallas/nms_kernel.py:111',
-        'launches': launches4 + launches5 + launches6 + launches7 + launches8 + launches9,
+        'launches': (launches4 + launches5 + launches6 + launches7 + launches8 + launches9
+                     + launches10a + launches10b + launches10c + sum(launches10.values())),
         'launches_by_path': {'serve': launches4, 'annotate': launches5,
                              'infer': launches6, 'train': launches7,
                              'train_dee_completion_selfsup': launches8,
-                             'eval': launches9},
-        'max_abs_err': max(err2, err4, err5),
-        'mismatched_px': bad2 + bad4 + bad5,
-        'checked_px': px2 + prob.numel() + px5,
+                             'eval': launches9, 'serve_bf16': launches10a,
+                             'annotate_bf16': launches10b, 'infer_bf16': launches10c,
+                             'train_bf16': launches10['10d'],
+                             'train_remat': launches10['10e']},
+        'max_abs_err': max(err2, err4, err5, err10),
+        'mismatched_px': bad2 + bad4 + bad5 + bad10,
+        'checked_px': px2 + prob.numel() + px5 + prob10.numel(),
         'tolerance': 'agree on >= 99.99% of pixels, kept values bit-equal',
         'ms': kernel_ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
         'bound_by': bound_by, 'library_ms': None}]}))

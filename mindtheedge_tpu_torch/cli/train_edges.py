@@ -7,8 +7,11 @@ Trains on the card; from Python, ``main(argv, device='cpu')`` runs the
 plain PyTorch path on the CPU.  A ``.ckpt`` resumes from that checkpoint;
 a yaml whose checkpoint directory already holds checkpoints resumes from
 the newest.  The shipped ``configs/train_packnet_san_kitti_with_edges.yaml``
-sets ``arch.precision: bfloat16``, which raises until ROADMAP Queue 1
-item 9: run it with ``precision: float32``.
+trains as written, in bf16 (``arch.precision: bfloat16``: the depth
+network computes in bf16 on fp32 master weights); its other documented
+form, ``precision: float32`` with ``model.depth_net.remat: True``, runs
+too.  The checkpoints hold fp32 tensors either way, so a run in one
+precision resumes in the other.
 """
 
 import argparse

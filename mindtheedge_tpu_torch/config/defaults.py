@@ -9,6 +9,24 @@ multi-device, analysis) are kept so that every config still merges.
 
 from mindtheedge_tpu_torch.config.node import ConfigNode
 
+# ``arch.precision``: the depth network's compute dtype (``models/tasks.py``)
+PRECISIONS = ('float32', 'bfloat16')
+# ``model.depth_net.remat``: no recomputation, the encoder, SAN ladder and
+# decoder recomputed in the backward, or the same keeping every conv's output
+# (``ops/remat.py``)
+REMAT_MODES = (False, True, 'conv')
+# keys that take one of a set of values, checked when a config is merged in
+# (``node.ConfigNode._coerce``) and when the network is built
+CHOICES = {'arch.precision': PRECISIONS, 'model.depth_net.remat': REMAT_MODES}
+
+
+def checked(key, value, choices):
+    """``value`` if it is one of ``choices`` (of the same type: ``1`` is
+    not ``True``), else a ValueError naming ``key``."""
+    if not any(type(value) is type(c) and value == c for c in choices):
+        raise ValueError(f'{key} {value!r}: expected one of {choices}')
+    return value
+
 
 def get_cfg_defaults():
     cfg = ConfigNode()
@@ -22,7 +40,7 @@ def get_cfg_defaults():
     cfg.arch.min_epochs = 1
     cfg.arch.max_epochs = 51
     cfg.arch.validate_first = False
-    cfg.arch.precision = 'float32'   # 'bfloat16' waits for ROADMAP item 9
+    cfg.arch.precision = 'float32'   # or 'bfloat16' (PRECISIONS)
     # Data-parallel replica count (Horovod per-replica batch semantics:
     # global batch = datasets.train.batch_size x replicas, reference
     # default_config.py:176 batch_size is per-GPU). 0 = all local devices;
@@ -137,7 +155,7 @@ def get_cfg_defaults():
     cfg.model.depth_net.freeze_decoder = False
     cfg.model.depth_net.freeze_san = False
     cfg.model.depth_net.input_channels = 3
-    cfg.model.depth_net.remat = False       # training only
+    cfg.model.depth_net.remat = False       # training only; True or 'conv' (REMAT_MODES)
     cfg.model.depth_net.channels = ()       # () = architecture default widths
     cfg.model.depth_net.is_depth_aux_net = False
     cfg.model.depth_net.output_channels = 1

@@ -7,6 +7,10 @@
   ``ast.literal_eval`` (yacs ``_decode_cfg_value`` semantics) so YAML entries
   like ``image_shape: (384, 1280)`` become tuples
 * tuple<->list coercion on merge (yacs ``_check_and_coerce_cfg_value_type``)
+* the keys of ``defaults.CHOICES`` take any of their values whatever the
+  default's type (``remat: 'conv'`` over the default False, which the JAX
+  package's node refuses as a type mismatch) and raise naming the key for
+  any other value
 
 ``yaml`` is imported only where a file is read or written.
 """
@@ -57,6 +61,9 @@ class ConfigNode(dict):
 
     @staticmethod
     def _coerce(replacement, original, full_key):
+        from mindtheedge_tpu_torch.config.defaults import CHOICES, checked
+        if full_key in CHOICES:     # any of its values, whatever the default's type
+            return checked(full_key, replacement, CHOICES[full_key])
         if original is None or replacement is None:
             return replacement
         r_type, o_type = type(replacement), type(original)

@@ -11,6 +11,8 @@ import torch
 import torch.nn as nn
 
 from mindtheedge_tpu_torch import resolve_device
+from mindtheedge_tpu_torch.config.defaults import REMAT_MODES, checked
+from mindtheedge_tpu_torch.ops import remat
 from mindtheedge_tpu_torch.ops.blocks import (
     ConvBlock, InvDepthHead, PackLayerConv3d, ResidualBlock, UnpackLayerConv3d)
 from mindtheedge_tpu_torch.ops.packing import upsample_nearest2x
@@ -44,13 +46,23 @@ class PackNetSlimEncoder(nn.Module):
         self.conv5 = ResidualBlock(n4, n5, NUM_BLOCKS[3], dropout=dropout)
         self.pack5 = PackLayerConv3d(n5, PACK_KERNEL[4], d=d)
 
-    def forward(self, rgb, generator=None):
+    def dropout_keeps(self, batch, device, generator=None):
+        """The dropout masks of one training forward (one list per residual
+        stack), drawn from ``generator`` in the order the forward runs the
+        blocks; None without dropout."""
+        stacks = (self.conv2, self.conv3, self.conv4, self.conv5)
+        if not stacks[0][0].dropout:
+            return None
+        return [s.dropout_keeps(batch, device, generator) for s in stacks]
+
+    def forward(self, rgb, keeps=None):
+        keeps = keeps or (None,) * 4
         x = self.pre_calc(rgb)
         x1p = self.pack1(self.conv1(x))
-        x2p = self.pack2(self.conv2(x1p, generator))
-        x3p = self.pack3(self.conv3(x2p, generator))
-        x4p = self.pack4(self.conv4(x3p, generator))
-        x5p = self.pack5(self.conv5(x4p, generator))
+        x2p = self.pack2(self.conv2(x1p, keeps[0]))
+        x3p = self.pack3(self.conv3(x2p, keeps[1]))
+        x4p = self.pack4(self.conv4(x3p, keeps[2]))
+        x5p = self.pack5(self.conv5(x4p, keeps[3]))
         return x5p, [x, x1p, x2p, x3p, x4p]
 
 
@@ -111,13 +123,23 @@ class PackNetSAN(nn.Module):
       RGBD pass is the only one that runs the SAN ladder, so it is the one
       that updates its running statistics, once per step.
 
-    ``generator`` feeds the encoder's dropout draws in training.
+    ``generator`` feeds the encoder's dropout draws in training: each pass
+    draws its masks before it runs the encoder, in the order the blocks
+    use them.  ``remat`` (True or ``'conv'``, ``ops/remat.py``) recomputes
+    the encoder, the SAN ladder and the decoder in the backward of a
+    training pass, as the JAX package's ``nn.remat`` does (``'conv'`` keeps
+    every conv's output); the loss, the gradients, the running statistics
+    and the generator's state are those of the pass without it.
     ``version`` and ``input_channels`` are the config's
     (``tasks.build_depth_net``); only 1A on RGB is ported: the 4-channel
     ``rgb_edge`` input and versions other than 1A raise (ROADMAP Queue 1
-    item 10), and ``remat`` raises (item 23).  The config's ``freeze_*``
-    flags are the optimizer's: it leaves those parameters out
-    (``training/optimizer.py``), as the JAX package does.
+    item 10).  The config's ``freeze_*`` flags are the optimizer's: it
+    leaves those parameters out (``training/optimizer.py``), as the JAX
+    package does.
+
+    The module computes in the dtype of its parameters and inputs: bf16
+    where ``tasks.BaseTask.run_depth`` hands it bf16 casts of its fp32
+    parameters, or where :func:`to_device` casts it once for serving.
     """
 
     def __init__(self, channels=SLIM_CHANNELS, version='1A', input_channels=3,
@@ -131,27 +153,38 @@ class PackNetSAN(nn.Module):
             raise NotImplementedError(
                 f'PackNetSAN with input_channels={input_channels} (rgb_edge '
                 'input) waits for ROADMAP Queue 1 item 10')
-        if remat:
-            raise NotImplementedError(
-                f'PackNetSAN remat={remat!r} (activation recomputation) waits '
-                'for ROADMAP Queue 1 item 23')
+        self.remat = checked('model.depth_net.remat', remat, REMAT_MODES)
         self.encoder = PackNetSlimEncoder(channels, dropout=dropout)
         self.decoder = PackNetDecoder(channels, output_channels)
         self.mconvs = SparseDepthEncoder(tuple(channels[1:]))
         self.weight = nn.Parameter(torch.ones(5))
         self.bias = nn.Parameter(torch.zeros(5))
 
+    def _region(self, module, *args):
+        """``module(*args)``; under ``remat`` in a training pass with
+        autograd on, recomputed in the backward.  The recompute runs after
+        ``tasks.BaseTask.run_depth``'s ``functional_call`` has put the fp32
+        masters back, so it is handed the tensors this pass used."""
+        if not (self.remat and self.training and torch.is_grad_enabled()):
+            return module(*args)
+        params = dict(module.named_parameters())
+        return remat.checkpoint(
+            lambda p, *a: torch.func.functional_call(module, p, a),
+            params, *args, policy=self.remat)
+
     def run_network(self, rgb, input_depth=None, generator=None):
         """NCHW: rgb [B,3,H,W], input_depth [B,1,H,W] -> (4 inverse depths,
         the 6 fused skip features)."""
-        x5p, skips = self.encoder(rgb, generator)
+        keeps = (self.encoder.dropout_keeps(rgb.shape[0], rgb.device, generator)
+                 if self.training else None)
+        x5p, skips = self._region(self.encoder, rgb, keeps)
         if input_depth is not None:
-            san = self.mconvs(input_depth)
+            san = self._region(self.mconvs, input_depth)
             w, b = self.weight, self.bias
             for i in range(4):
                 skips[i + 1] = skips[i + 1] * w[i] + san[i] + b[i]
             x5p = x5p * w[4] + san[4] + b[4]
-        return self.decoder(x5p, skips), skips + [x5p]
+        return self._region(self.decoder, x5p, skips), skips + [x5p]
 
     def forward(self, rgb, input_depth=None, generator=None):
         rgb = rgb.permute(0, 3, 1, 2)
@@ -198,29 +231,32 @@ def _cuda_fp32(device):
         torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def to_device(model, device=None):
+def to_device(model, device=None, dtype=torch.float32):
     """``model`` in eval mode on ``device`` (``None`` -> CUDA, which must be
-    present).  Every inference entry point builds its model through here.
+    present), its floating parameters and buffers cast once to ``dtype``
+    (bf16 for ``serve.build``'s bf16 serving; the tasks keep fp32 masters
+    and cast per call).  Every inference entry point builds its model
+    through here.
 
     On CUDA this sets, for the process, cuDNN's autotuner on
     (``torch.backends.cudnn.benchmark``: cuDNN's heuristics pick an
     FFT-tiling algorithm for the 3x3 convs with 256 inputs at 48x160 that
     made a batch-4 request 7x slower on an H100, PERF.md; the first forward
     at each input shape pays for the tuning) and TF32 off in convs and
-    matmuls: inference runs in strict fp32, the precision of the JAX
-    reference and of every parity test, until ROADMAP item 9 makes the
-    precision a config choice.  PyTorch's default lets cuDNN's convs run
-    in TF32.
+    matmuls: the fp32 path runs in strict fp32, the precision of the JAX
+    reference and of every parity test (PyTorch's default lets cuDNN's
+    convs run in TF32).  bf16 convs do not read the flag.
     """
     device = resolve_device(device)
     _cuda_fp32(device)
-    return model.to(device).eval()
+    return model.to(device=device, dtype=dtype).eval()
 
 
 def to_train_device(model, device=None):
     """``model`` in training mode on ``device``, for the training entry
-    points, with the settings of :func:`to_device`: training runs in strict
-    fp32 (``arch.precision: float32``; bf16 waits for ROADMAP item 9)."""
+    points, with the settings of :func:`to_device`.  The model stays fp32:
+    it holds the master weights and running statistics, which a bf16
+    training step updates in fp32 (``tasks.BaseTask.run_depth``)."""
     device = resolve_device(device)
     _cuda_fp32(device)
     return model.to(device).train()

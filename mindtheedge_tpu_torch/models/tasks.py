@@ -19,14 +19,22 @@ The pose network stays in eval mode, as in the JAX package, whose
 ``PoseResNet``'s batch norms normalise with their running statistics in
 training too, and those never update; its parameters still train.
 
+``arch.precision: bfloat16`` runs the depth network in bf16, as the JAX
+package's ``run_depth`` does (``:183-239``): bf16 casts of its fp32
+parameters and float inputs at each call, its outputs back in fp32 before
+the flip-back, the upsampling and any loss; the master weights, their
+gradients and the running statistics stay fp32.  The pose network is not
+cast.
+
 Not ported yet, each raising with its ROADMAP Queue 1 item: the generic
 ray-surface tasks (``GenericSfmModel``, ``GenericSelfSupModel``) and
-``RaySurfaceResNet`` (item 26); bf16 (item 9).
+``RaySurfaceResNet`` (item 26).
 """
 
 import torch
 
 from mindtheedge_tpu_torch import resolve_device
+from mindtheedge_tpu_torch.config.defaults import PRECISIONS, checked
 from mindtheedge_tpu_torch.geometry.pose import pose_vec2mat
 from mindtheedge_tpu_torch.losses.grad_loss import grad_loss
 from mindtheedge_tpu_torch.losses.photometric import multiview_photometric_loss
@@ -73,7 +81,7 @@ def build_depth_net(cfg):
                           input_channels=cfg.input_channels,
                           output_channels=cfg.output_channels,
                           dropout=cfg.dropout or None,
-                          remat=cfg.get('remat', False) or False, **extra)
+                          remat=cfg.get('remat', False), **extra)
     if cfg.name in ('PackNet01', 'PackNetSlim01'):
         raise NotImplementedError(
             f'{cfg.name} waits for ROADMAP Queue 1 item 10')
@@ -125,9 +133,9 @@ class BaseTask:
     self_supervised = False     # whether train_loss runs the photometric loss
 
     def __init__(self, config, device=None, ckpt=None):
-        if getattr(config.arch, 'precision', 'float32') == 'bfloat16':
-            raise NotImplementedError(
-                'arch.precision bfloat16 waits for ROADMAP Queue 1 item 9')
+        precision = checked('arch.precision', getattr(config.arch, 'precision', 'float32'),
+                            PRECISIONS)
+        self.compute_dtype = getattr(torch, precision)
         self.config = config
         mloss = config.model.loss
         self.flip_lr_prob = mloss.flip_lr_prob
@@ -170,7 +178,9 @@ class BaseTask:
         is drawn.  ``upsample_depth_maps`` then brings every training scale
         to full resolution.  The 4-channel ``rgb_edge`` input is not ported
         (the network raises at build for ``input_channels == 4``), so
-        ``rgb_edge`` does not reach the network.
+        ``rgb_edge`` does not reach the network.  The network computes in
+        ``compute_dtype`` (:meth:`_depth_forward`); what this returns is
+        fp32.
         """
         self.depth_net.train(train)
         flip = None
@@ -183,13 +193,28 @@ class BaseTask:
         lidar = batch.get('input_depth')
         lidar = None if lidar is None else _maybe_flip(lidar, flip)
         with torch.set_grad_enabled(train):
-            out = self.depth_net(rgb, lidar, generator)
+            out = self._depth_forward(rgb, lidar, generator)
             for key in ('inv_depths', 'inv_depths_rgbd'):
                 if key in out:
-                    out[key] = [_maybe_flip(d, flip) for d in out[key]]
+                    out[key] = [_maybe_flip(d.float(), flip) for d in out[key]]
+            if 'depth_loss' in out:
+                out['depth_loss'] = out['depth_loss'].float()
             if train and self.upsample_depth_maps:
                 out = upsample_output(out)
         return out
+
+    def _depth_forward(self, rgb, lidar, generator):
+        """The depth network in ``compute_dtype``.  Below fp32 it runs on
+        casts of its fp32 parameters (``torch.func.functional_call``), so
+        gradients flow back through the casts to the masters in fp32, and
+        on casts of the float inputs; its running statistics stay the
+        module's fp32 buffers (``ops.sparse.MaskedBatchNorm``)."""
+        net, dtype = self.depth_net, self.compute_dtype
+        if dtype == torch.float32:
+            return net(rgb, lidar, generator)
+        cast = lambda t: t.to(dtype) if t is not None and t.dtype == torch.float32 else t
+        params = {n: p.to(dtype) for n, p in net.named_parameters()}
+        return torch.func.functional_call(net, params, (cast(rgb), cast(lidar), generator))
 
     def run_pose(self, batch):
         """The pose network on ``batch['rgb']`` and ``batch['rgb_context']``

@@ -17,14 +17,20 @@ from mindtheedge_tpu_torch.ops.packing import pack2d, unpack2d
 
 
 class GroupNorm(nn.GroupNorm):
-    """GroupNorm(16 groups, eps 1e-5) with fp32 statistics (``blocks.py:74-131``)."""
+    """GroupNorm(16 groups, eps 1e-5) with fp32 statistics (``blocks.py:74-131``).
+
+    The activation and the parameters share one dtype (bf16 under
+    ``arch.precision: bfloat16``); ``F.group_norm`` accumulates the
+    statistics in fp32 for bf16 input and rounds the output once, where the
+    JAX package rounds its fp32 scale and shift to bf16 first.  Both stay
+    inside the bf16 band of tests/test_torch_bf16.py.
+    """
 
     def __init__(self, num_channels, num_groups=16, eps=1e-5):
         super().__init__(num_groups, num_channels, eps)
 
     def forward(self, x):
-        return F.group_norm(x.float(), self.num_groups, self.weight,
-                            self.bias, self.eps).to(x.dtype)
+        return F.group_norm(x, self.num_groups, self.weight, self.bias, self.eps)
 
 
 class ConvBlock(nn.Module):
@@ -40,20 +46,27 @@ class ConvBlock(nn.Module):
         return F.elu(self.normalize(self.conv_base(x)))
 
 
-def channel_dropout(x, rate, generator=None):
+def dropout_keep(batch, channels, rate, device, generator=None):
+    """The keep mask of :func:`channel_dropout`: [B,C,1,1] booleans, one
+    draw per (image, channel) from ``generator``."""
+    return torch.rand(batch, channels, 1, 1, device=device, generator=generator) >= rate
+
+
+def channel_dropout(x, rate, keep):
     """Dropout2d of [B,C,H,W]: whole channels drop with probability
     ``rate``, the kept ones are divided by 1 - rate (flax ``nn.Dropout`` with
-    ``broadcast_dims=(1, 2)``, ``blocks.py:517-520``).  The keep mask is one
-    draw per (image, channel) from ``generator``."""
-    keep = torch.rand(x.shape[0], x.shape[1], 1, 1, device=x.device,
-                      generator=generator) >= rate
+    ``broadcast_dims=(1, 2)``, ``blocks.py:517-520``).  ``keep`` is the
+    mask of :func:`dropout_keep`, drawn by the caller before the forward
+    (``models/packnet.PackNetSAN.run_network``), so that a recompute of the
+    forward in the backward does not draw again."""
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
 class ResidualConv(nn.Module):
     """Two ConvBlocks plus a 1x1 shortcut; GroupNorm + ELU of the sum
     (``blocks.py:510-524``).  In training, ``dropout`` drops whole channels
-    of the shortcut (:func:`channel_dropout`); in eval it does nothing."""
+    of the shortcut by the mask ``keep`` (:func:`channel_dropout`), which
+    it then needs; in eval it does nothing."""
 
     def __init__(self, in_channels, out_channels, stride=1, dropout=None):
         super().__init__()
@@ -63,16 +76,16 @@ class ResidualConv(nn.Module):
         self.normalize = GroupNorm(out_channels)
         self.dropout = dropout
 
-    def forward(self, x, generator=None):
+    def forward(self, x, keep=None):
         shortcut = self.conv3(x)
         if self.dropout and self.training:
-            shortcut = channel_dropout(shortcut, self.dropout, generator)
+            shortcut = channel_dropout(shortcut, self.dropout, keep)
         return F.elu(self.normalize(self.conv2(self.conv1(x)) + shortcut))
 
 
 class ResidualBlock(nn.Sequential):
     """A stack of ResidualConvs; the first may change channels and stride.
-    ``generator`` feeds every block's dropout draws."""
+    ``keeps`` holds one dropout mask per block (:meth:`dropout_keeps`)."""
 
     def __init__(self, in_channels, out_channels, num_blocks, stride=1,
                  dropout=None):
@@ -81,9 +94,14 @@ class ResidualBlock(nn.Sequential):
                          stride if i == 0 else 1, dropout)
             for i in range(num_blocks)])
 
-    def forward(self, x, generator=None):
-        for block in self:
-            x = block(x, generator)
+    def dropout_keeps(self, batch, device, generator=None):
+        """Each block's dropout mask, drawn in the order the blocks run."""
+        return [dropout_keep(batch, block.conv3.out_channels, block.dropout,
+                             device, generator) for block in self]
+
+    def forward(self, x, keeps=None):
+        for i, block in enumerate(self):
+            x = block(x, None if keeps is None else keeps[i])
         return x
 
 

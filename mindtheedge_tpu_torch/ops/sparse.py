@@ -16,6 +16,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from mindtheedge_tpu_torch.ops.remat import recomputing
+
 
 def masked_max_pool_3x3_s2(x, mask):
     """3x3 stride-2 max-pool over active sites (``sparse.py:63-70``).
@@ -24,6 +26,11 @@ def masked_max_pool_3x3_s2(x, mask):
     active iff any input of its 2x2 cell {2i,2i+1}x{2j,2j+1} is active; its
     value is the max over the active inputs of the centred 3x3 window, and 0
     at inactive sites.  Returns (pooled, new_mask).
+
+    Inactive inputs enter the max as the dtype's finite minimum.  The JAX
+    pool casts float32's minimum to the activation's dtype, which in bf16
+    rounds to -inf; the two sentinels give equal maps, since an output site
+    with no active input is zeroed either way (tests/test_torch_bf16.py).
     """
     neg = torch.finfo(x.dtype).min
     pooled = F.max_pool2d(torch.where(mask > 0, x, neg), 3, 2, padding=1)
@@ -38,9 +45,15 @@ class MaskedBatchNorm(nn.Module):
     by ``BatchNorm1d``.
 
     In training the mean and the *biased* variance run over the active
-    sites only, with ``count = max(mask.sum(), 1)``, and gradients flow
-    through both; the running statistics decay by ``DECAY`` (torch momentum
-    0.1).  In eval the running statistics normalise.
+    sites only, in fp32, with ``count = max(mask.sum(), 1)``, and gradients
+    flow through both; the running statistics decay by ``DECAY`` (torch
+    momentum 0.1), except while the backward recomputes the module
+    (``ops/remat.py``).  The update is fp32 in every precision: it lands in
+    the module's own buffers, fp32 where the master weights are, and the
+    old value is not rounded to bf16 first as the JAX package's bf16 step
+    may round it (a kept difference, ROADMAP Queue 3).  In eval the running
+    statistics normalise, cast to the activation's dtype as the JAX package
+    casts them.
     """
 
     DECAY = 0.9
@@ -56,12 +69,13 @@ class MaskedBatchNorm(nn.Module):
             count = torch.clamp(mask.float().sum(), min=1.0)
             mean = (xf * mask).sum((0, 2, 3)) / count
             var = ((xf - mean[:, None, None]) ** 2 * mask).sum((0, 2, 3)) / count
-            with torch.no_grad():
-                bn.running_mean.mul_(self.DECAY).add_(mean, alpha=1 - self.DECAY)
-                bn.running_var.mul_(self.DECAY).add_(var, alpha=1 - self.DECAY)
-                bn.num_batches_tracked.add_(1)
+            if not recomputing():
+                with torch.no_grad():
+                    bn.running_mean.mul_(self.DECAY).add_(mean, alpha=1 - self.DECAY)
+                    bn.running_var.mul_(self.DECAY).add_(var, alpha=1 - self.DECAY)
+                    bn.num_batches_tracked.add_(1)
         else:
-            mean, var = bn.running_mean, bn.running_var
+            mean, var = bn.running_mean.to(x.dtype), bn.running_var.to(x.dtype)
         inv = torch.rsqrt(var + bn.eps)
         gain = inv * bn.weight
         off = bn.bias - mean * inv * bn.weight

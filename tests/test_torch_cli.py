@@ -15,6 +15,14 @@ the same angle; see tests/test_torch_edge_ops.py), the 4 corners of each
 map left out.  The split file and ``pred_list.txt`` are byte-identical
 once the output folder's name is swapped (each CLI writes its own).
 Inference: ``_regular.npy`` depths within 1/256 m, one u16 step.
+
+In bf16 (``arch.precision: bfloat16``) both CLIs are held to a band from
+the JAX package's own bf16-vs-fp32 gap on the same files, as
+tests/test_torch_bf16.py holds the network: the port's bf16 may differ from
+JAX's bf16 by at most ``BAND`` times what JAX's bf16 differs from its fp32
+(depth: relative error, median and max; annotation: the share of edge
+values off by more than 1e-4 and of normals off by more than one code).
+Their outputs are fp32 (and uint8 PNGs) whatever the precision.
 """
 
 import numpy as np
@@ -28,6 +36,7 @@ from tests.test_torch_tasks import write_jax_checkpoint
 torch.set_num_threads(1)
 
 H, W, N, BATCH = 64, 96, 3, 2
+BAND = 2.0
 
 
 def write_split(tmp_path):
@@ -216,3 +225,48 @@ def test_inference_sparse_uplink_equals_dense(inference, port_inference):
         f32 = np.load(f32_dir / f'{i:08d}_regular.npy')
         np.testing.assert_array_equal(
             u16, np.round(np.clip(f32 * 256.0, 0, 65535)).astype(np.float32) / 256.0)
+
+
+def bf16(cfg):
+    return dict(cfg, arch={'precision': 'bfloat16'})
+
+
+def test_inference_bf16_matches_jax_cli_within_band(inference, tmp_path):
+    from mindtheedge_tpu.cli.infer_edges import main as jax_main
+    cfg, _ = inference
+    port = run(infer_edges.main, bf16(cfg), tmp_path, 'port16', '--wire', 'f32', device='cpu')
+    jax16 = run(jax_main, bf16(cfg), tmp_path, 'jax16', '--wire', 'f32')
+    jax32 = run(jax_main, cfg, tmp_path, 'jax32', '--wire', 'f32')
+    load = lambda d: np.stack([np.load(d / f'{i:08d}_regular.npy') for i in range(N)])
+    got, want16, want32 = load(port), load(jax16), load(jax32)
+    assert got.dtype == np.float32 and got.shape == (N, H, W) and np.isfinite(got).all()
+    gap, err = (np.abs(a - b) / b for a, b in ((want16, want32), (got, want16)))
+    print(f'depth: JAX bf16 vs fp32 {np.median(gap):.3e} / {gap.max():.3e}, '
+          f'port vs JAX bf16 {np.median(err):.3e} / {err.max():.3e}')
+    assert np.median(err) <= BAND * np.median(gap) and err.max() <= BAND * gap.max()
+
+
+def test_annotation_bf16_matches_jax_cli_within_band(annotation, tmp_path):
+    import cv2
+    from mindtheedge_tpu.cli.infer_edge_estimation import main as jax_main
+    cfg, _ = annotation
+    port = run(infer_edge_estimation.main, bf16(cfg), tmp_path, 'port16', device='cpu')
+    jax16 = run(jax_main, bf16(cfg), tmp_path, 'jax16')
+    jax32 = run(jax_main, cfg, tmp_path, 'jax32')
+    off = {'edges': [], 'normals': []}    # (port vs JAX bf16, JAX bf16 vs fp32)
+    for i in range(N):
+        for tag in ('lidar', 'regular'):
+            for s in range(4):
+                base = f'{i:08d}_{tag}_{s:03d}'
+                got, w16, w32 = (np.load(d / f'{base}.npy') for d in (port, jax16, jax32))
+                assert got.dtype == np.float32 and got.shape == (H >> s, W >> s)
+                off['edges'].append((np.abs(got - w16) > 1e-4, np.abs(w16 - w32) > 1e-4))
+                got, w16, w32 = (cv2.imread(str(d / 'normals' / f'{base}.png'),
+                                            cv2.IMREAD_UNCHANGED) for d in (port, jax16, jax32))
+                assert got.dtype == np.uint8 and got.shape == (H >> s, W >> s)
+                off['normals'].append((1 - normals_within_one_code(got, w16),
+                                       1 - normals_within_one_code(w16, w32)))
+    for kind, pairs in off.items():
+        port_off, jax_off = (np.mean([np.mean(p[k]) for p in pairs]) for k in (0, 1))
+        print(f'{kind}: off on {port_off:.4%} port vs JAX bf16, {jax_off:.4%} JAX bf16 vs fp32')
+        assert jax_off > 0 and port_off <= BAND * jax_off, kind

@@ -6,6 +6,14 @@ Tolerances: depth rtol 1e-3 (the network's fp32 tolerance,
 tests/test_full_network_parity.py).  Edges agree on >= 99 % of pixels: ulp
 differences in the inverse depth flip NMS near-ties.  Fed the same
 probability map, the NMS agrees exactly; the wire codecs agree exactly.
+
+bf16 serving (``serve.build(..., dtype=torch.bfloat16)``) against the JAX
+package's bf16 program (``bench.py:_build``: weights and LiDAR cast to bf16,
+``u8 / 255`` cast to bf16, ``inv_depth`` back to fp32 before the clip and
+the NMS) is held to a band from the JAX program's own bf16-vs-fp32 gap, as
+tests/test_torch_bf16.py holds the network: the depth's relative error
+(median and max) and the share of edge pixels that disagree, each at most
+``BAND`` times JAX's.
 """
 
 import numpy as np
@@ -29,6 +37,7 @@ torch.set_num_threads(1)
 
 CHANNELS = (16,) * 6
 H, W = 64, 96
+BAND = 2.0
 
 
 @pytest.fixture(scope='module')
@@ -44,19 +53,24 @@ def pair():
 
     @jax.jit
     def forward(variables, rgb_u8, lidar):
-        rgb = rgb_u8.astype(jnp.float32) / 255.0
+        dtype = lidar.dtype     # bench.py: the rgb cast to the LiDAR's dtype
+        rgb = (rgb_u8.astype(jnp.float32) / 255.0).astype(dtype)
         out = jmodel.apply(variables, rgb, lidar, train=False)
-        inv_depth = out['inv_depths'][0][..., 0]
+        inv_depth = out['inv_depths'][0][..., 0].astype(jnp.float32)
         prob = jnp.clip(inv_depth / 2.0, 0.0, 1.0)
         return jinv2depth(inv_depth), jedge.non_max_suppression(prob), prob
 
     depth, edges, prob = (np.array(a) for a in forward(
         variables, rgb_u8, lidar))
+    to_bf16 = lambda t: jax.tree_util.tree_map(
+        lambda x: jnp.asarray(x).astype(jnp.bfloat16) if x.dtype == np.float32 else x, t)
+    depth16, edges16, _ = (np.array(a) for a in forward(
+        to_bf16(variables), rgb_u8, to_bf16(lidar)))
     model = PackNetSAN(CHANNELS).eval()
     model.load_state_dict(state_dict_from_jax(
         variables['params'], variables['batch_stats']), strict=True)
     return dict(model=model, rgb_u8=rgb_u8, lidar=lidar, depth=depth,
-                edges=edges, prob=prob)
+                edges=edges, prob=prob, depth16=depth16, edges16=edges16)
 
 
 def test_depth_edges_matches_jax(pair):
@@ -133,5 +147,43 @@ def test_build_on_cpu_is_seeded():
     rng = np.random.RandomState(2)
     rgb_u8 = torch.from_numpy(rng.randint(0, 256, (1, 32, 64, 3)).astype(np.uint8))
     depth, edges = serve.serve(a, rgb_u8, torch.zeros(1, 32, 64, 1))
+    assert depth.dtype == torch.uint16 and depth.shape == (1, 32, 64)
+    assert edges.dtype == torch.uint8 and edges.shape == (1, 32, 8)
+
+
+def test_serve_bf16_matches_jax_bf16_within_band(pair):
+    """The port's model cast once to bf16, through ``serve.depth_edges`` as
+    ``serve.serve`` feeds it, against ``bench.py``'s bf16 program."""
+    import copy
+    model = copy.deepcopy(pair['model']).to(torch.bfloat16)
+    rgb = (torch.from_numpy(pair['rgb_u8']).float() / 255.0).bfloat16()
+    out = serve.depth_edges(model, rgb, torch.from_numpy(pair['lidar']).bfloat16())
+    assert out['depth'].dtype == out['edges'].dtype == torch.float32
+    depth, edges = out['depth'].numpy(), out['edges'].numpy()
+    gap, err = (np.abs(a - b) / b for a, b in ((pair['depth16'], pair['depth']),
+                                               (depth, pair['depth16'])))
+    flips = lambda a, b: ((a > 0) != (b > 0)).mean()
+    jax_flips, port_flips = flips(pair['edges16'], pair['edges']), flips(edges, pair['edges16'])
+    print(f'depth: JAX bf16 vs fp32 {np.median(gap):.3e} / {gap.max():.3e}, port vs '
+          f'JAX bf16 {np.median(err):.3e} / {err.max():.3e}; edges flipped on '
+          f'{jax_flips:.4%} / {port_flips:.4%}')
+    assert np.median(err) <= BAND * np.median(gap) and err.max() <= BAND * gap.max()
+    assert 0 < jax_flips and port_flips <= BAND * jax_flips
+
+
+def test_build_bf16_casts_once():
+    """``serve.build(dtype=bf16)`` draws the fp32 weights of ``seed`` and
+    casts every floating tensor once; ``serve`` then takes uint8 RGB and
+    fp32 LiDAR and answers on the usual wire."""
+    a = serve.build(CHANNELS, device='cpu', seed=0)
+    b = serve.build(CHANNELS, device='cpu', seed=0, dtype=torch.bfloat16)
+    sa, sb = a.state_dict(), b.state_dict()
+    for k, v in sa.items():
+        want = v.to(torch.bfloat16) if v.is_floating_point() else v
+        assert sb[k].dtype == want.dtype and torch.equal(sb[k], want), k
+    rng = np.random.RandomState(2)
+    rgb_u8 = torch.from_numpy(rng.randint(0, 256, (1, 32, 64, 3)).astype(np.uint8))
+    lidar = torch.from_numpy((rng.rand(1, 32, 64, 1) * 40).astype(np.float32))
+    depth, edges = serve.serve(b, rgb_u8, lidar * (lidar > 36))
     assert depth.dtype == torch.uint16 and depth.shape == (1, 32, 64)
     assert edges.dtype == torch.uint8 and edges.shape == (1, 32, 8)

@@ -137,9 +137,7 @@ def test_unported_options_raise():
     cfg.merge_from_other_cfg(model_config('SemiSupEdgeModel').to_dict())
     for key, value, item in (('model.depth_net.input_channels', 4, 'item 10'),
                              ('model.depth_net.version', '1B', 'item 10'),
-                             ('model.depth_net.name', 'PackNet01', 'item 10'),
-                             ('model.depth_net.remat', True, 'item 23'),
-                             ('arch.precision', 'bfloat16', 'item 9')):
+                             ('model.depth_net.name', 'PackNet01', 'item 10')):
         bad = cfg.clone()
         bad.merge_from_list([key, value])
         with pytest.raises(NotImplementedError, match=item):
@@ -162,6 +160,31 @@ def test_unported_options_raise():
     dee = cfg.clone()
     dee.model.name = 'EdgeEstimationLIDARModel'
     tasks.build_task(dee, device='cpu').check_trainable()
+
+
+def test_precision_and_remat_choices():
+    """``arch.precision`` and ``model.depth_net.remat`` build with each of
+    their values (``remat: 'conv'`` merges over the default False) and
+    raise a ValueError naming the key for any other, at merge and at
+    build."""
+    cfg = config.get_cfg_defaults()
+    cfg.merge_from_other_cfg(model_config('EdgeEstimationLIDARModel').to_dict())
+    for precision, dtype in (('float32', torch.float32), ('bfloat16', torch.bfloat16)):
+        for remat in (False, True, 'conv'):
+            ok = cfg.clone()
+            ok.merge_from_list(['arch.precision', precision, 'model.depth_net.remat', remat])
+            task = tasks.build_task(ok, device='cpu')
+            assert task.compute_dtype == dtype and task.depth_net.remat == remat
+            assert all(p.dtype == torch.float32 for p in task.depth_net.parameters())
+    for key, value in (('arch.precision', 'float16'), ('model.depth_net.remat', 'full'),
+                       ('model.depth_net.remat', 1)):
+        with pytest.raises(ValueError, match=key.replace('.', r'\.')):
+            cfg.clone().merge_from_list([key, value])
+        bad = cfg.clone()
+        node = bad.arch if key.startswith('arch') else bad.model.depth_net
+        setattr(node, key.rsplit('.', 1)[1], value)
+        with pytest.raises(ValueError, match=key.replace('.', r'\.')):
+            tasks.build_task(bad, device='cpu')
 
 
 def test_build_task_without_cuda_raises(monkeypatch, tmp_path):

@@ -294,9 +294,66 @@ def test_train_without_cuda_raises(runs, monkeypatch):
         train_edges.main([runs['yaml']])
 
 
+def assert_fp32_checkpoint(ckpt_dir, state):
+    """The newest checkpoint holds fp32 tensors (``num_batches_tracked``
+    int64) equal to the trained network, and fp32 Adam moments."""
+    ckpt = load_checkpoint(os.path.join(ckpt_dir, ckpts(ckpt_dir)[-1]))
+    for k, v in ckpt['state_dict'].items():
+        assert v.dtype == (torch.int64 if k.endswith('num_batches_tracked')
+                           else torch.float32), k
+    for k, v in state.net.state_dict().items():
+        assert torch.equal(ckpt['state_dict'][f'model.depth_net.{k}'], v), k
+    for s in ckpt['optimizer']['state'].values():
+        assert s['exp_avg'].dtype == s['exp_avg_sq'].dtype == torch.float32
+
+
+@pytest.mark.parametrize('key,value', [
+    ('arch.precision', 'bfloat16'),
+    ('model.depth_net.remat', True),
+    ('model.depth_net.remat', 'conv'),
+])
+def test_precision_and_remat_options_train(runs, tmp_path, key, value):
+    """bf16 and both recomputation modes train one epoch through the CLI
+    and write a checkpoint of fp32 tensors."""
+    cfg = config.get_cfg_defaults()
+    cfg.merge_from_other_cfg(train_config(runs['split'], str(tmp_path / 'ck'),
+                                          runs['init']).to_dict())
+    cfg.merge_from_list([key, value, 'arch.max_epochs', 1])
+    path = str(tmp_path / 'option.yaml')
+    cfg.save_yaml(path)
+    exp = train_edges.main([path], device='cpu')
+    assert exp.state.step == 2 and np.isfinite(epoch_losses(str(tmp_path / 'ck'))).all()
+    assert_fp32_checkpoint(str(tmp_path / 'ck'), exp.state)
+
+
+def test_shipped_yaml_trains_in_bf16_and_resumes_in_fp32(runs, tmp_path):
+    """``configs/train_packnet_san_kitti_with_edges.yaml`` as written (bf16,
+    dropout 0.5, flip 0.5, batch 3), its data paths, sizes (64x96, channels
+    (16,)*6), epochs and checkpoint folder replaced: one epoch in bf16, then
+    its checkpoint resumes in fp32 for a second."""
+    cfg = config.get_cfg_defaults()
+    cfg.merge_from_file('configs/train_packnet_san_kitti_with_edges.yaml')
+    assert cfg.arch.precision == 'bfloat16' and cfg.model.depth_net.dropout == 0.5
+    for mode in ('train', 'validation'):
+        cfg.datasets[mode].path, cfg.datasets[mode].split = [''], [runs['split']]
+    cfg.datasets.augmentation.image_shape = (H, W)
+    cfg.model.depth_net.channels = CHANNELS
+    cfg.arch.max_epochs = 1
+    cfg.checkpoint.filepath = str(tmp_path / 'ck')
+    path = str(tmp_path / 'shipped.yaml')
+    cfg.save_yaml(path)
+    exp = train_edges.main([path], device='cpu')
+    assert exp.task.compute_dtype == torch.bfloat16 and exp.state.step == 1
+    assert_fp32_checkpoint(cfg.checkpoint.filepath, exp.state)
+    cfg.arch.precision, cfg.arch.max_epochs = 'float32', 2
+    cfg.save_yaml(path)
+    exp = train_edges.main([path], device='cpu')
+    assert exp.task.compute_dtype == torch.float32
+    assert (exp.state.epoch, exp.state.step) == (2, 2)
+    assert_fp32_checkpoint(cfg.checkpoint.filepath, exp.state)
+
+
 @pytest.mark.parametrize('key,value,item', [
-    ('arch.precision', 'bfloat16', 'item 9'),
-    ('model.depth_net.remat', True, 'item 23'),
     ('arch.dp_devices', 2, 'item 19'),
     ('checkpoint.s3_path', 's3://bucket/run', 'item 25'),
     ('wandb.dry_run', False, 'item 25'),

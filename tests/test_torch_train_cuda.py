@@ -2,7 +2,10 @@
 paper's ``SemiSupEdgeModel`` and for DEE, completion and self-supervised
 training; the photometric loss on the card against the CPU (gradients within 3e-4
 of their tensor's largest, ``photometric_card_vs_cpu``); a checkpoint
-round trip on the card; the helpers ``chip_smoke.py`` shares, among them
+round trip on the card; a bf16 step on the card against the CPU within
+``BAND`` times the CPU's own bf16-vs-fp32 gap (``bf16_card_vs_cpu``); a
+step with ``remat`` True and ``'conv'`` against the step without it on the
+card (``remat_vs_plain``); the helpers ``chip_smoke.py`` shares, among them
 the writer of a synthetic KITTI raw tree (``write_kitti_tree``).
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
@@ -40,6 +43,7 @@ from mindtheedge_tpu_torch.training.train_step import create_train_state, make_t
 
 LR = 1e-4
 ADAM_EPS = 1e-8     # torch.optim.Adam's default
+GRAD_RTOL = 1e-4    # card vs CPU: of each gradient tensor's largest |value|
 
 
 def train_config(channels=(16,) * 6, dropout=0.0, flip_lr_prob=0.0, seed=0):
@@ -107,7 +111,7 @@ def one_step(task, batch):
     return state, metrics, before
 
 
-def compare_states(card, host, before, grad_rtol=1e-4, noise_floor=0.0):
+def compare_states(card, host, before, grad_rtol=GRAD_RTOL, noise_floor=0.0):
     """Card vs CPU after one step -> the worst ratios found.  Gradients:
     each tensor within ``grad_rtol`` of its largest |gradient| (or
     ``noise_floor`` of its network's largest, if more); a tensor whose
@@ -422,6 +426,104 @@ def write_kitti_tree(root, n_frames=6, h=8, w=16, seed=0, no_gt=(4,)):
     return split
 
 
+BAND = 2.0     # bf16 vs bf16 may differ by this times bf16 vs fp32
+
+
+def step_outcome(cfg, batch, device, seed=7):
+    """One ``train_step`` of the task of ``cfg`` from its seeded weights,
+    the generator seeded with ``seed`` -> (loss, gradients, the depth
+    network's state dict after the step, the generator's state)."""
+    task = build_task(cfg, device=device)
+    state = create_train_state(cfg, task.depth_net)
+    to_dev = lambda v: [x.to(device) for x in v] if isinstance(v, list) else v.to(device)
+    gen = torch.Generator(device).manual_seed(seed)
+    metrics = make_train_step(task)(state, {k: to_dev(v) for k, v in batch.items()}, gen)
+    return (float(metrics['loss']),
+            {n: p.grad.detach().cpu().clone() for n, p in task.depth_net.named_parameters()},
+            {k: v.cpu().clone() for k, v in task.depth_net.state_dict().items()},
+            gen.get_state())
+
+
+def outcome_gaps(got, want, fp32=None):
+    """How far one step's outcome lies from another's -> {'loss': relative
+    error, 'grad': (median, max) over the gradient tensors of the tensor's
+    largest error over its largest |value|, 'stats': (median, max) relative
+    error of the running statistics, 'counts': whether
+    ``num_batches_tracked`` are equal, 'generator': whether the generators'
+    states are}.  A gradient tensor whose largest |value| in ``fp32`` (an
+    fp32 outcome, else ``want``) is below 1e-5 of the network's vanishes
+    analytically (a conv bias in front of a one-channel GroupNorm group)
+    and holds rounding noise alone, bf16's far above 1e-5: it is left
+    out."""
+    ref = (fp32 or want)[1]
+    top = max(float(g.abs().max()) for g in ref.values())
+    grads = [float((got[1][n] - g).abs().max()) / float(g.abs().max())
+             for n, g in want[1].items() if float(ref[n].abs().max()) > 1e-5 * top]
+    keys = [k for k in want[2] if k.endswith(('running_mean', 'running_var'))]
+    stats = torch.cat([((got[2][k] - want[2][k]).abs() / want[2][k].abs().clamp_min(1e-30)
+                        ).ravel() for k in keys]).double().numpy()
+    return {'loss': abs(got[0] - want[0]) / abs(want[0]),
+            'grad': (float(np.median(grads)), max(grads)),
+            'stats': (float(np.median(stats)), float(stats.max())),
+            'counts': all(torch.equal(got[2][k], v) for k, v in want[2].items()
+                          if k.endswith('num_batches_tracked')),
+            'generator': torch.equal(got[3].cpu(), want[3].cpu())}
+
+
+def bf16_card_vs_cpu(dev, shape=(2, 64, 96)):
+    """One bf16 ``train_step`` of the paper's task (dropout and flip off)
+    on the card against the same on the CPU, held to ``BAND`` times the
+    CPU's own bf16-vs-fp32 gap in the loss, the gradients and the running
+    statistics (median and max) -> (card-vs-CPU gaps, the CPU's gaps)."""
+    cfg32 = train_config()
+    cfg16 = cfg32.clone()
+    cfg16.arch.precision = 'bfloat16'
+    batch = synthetic_batch(np.random.RandomState(0), *shape)
+    cpu16, cpu32 = step_outcome(cfg16, batch, 'cpu'), step_outcome(cfg32, batch, 'cpu')
+    ref = outcome_gaps(cpu16, cpu32)
+    got = outcome_gaps(step_outcome(cfg16, batch, dev), cpu16, fp32=cpu32)
+    assert got['counts'] and got['loss'] <= BAND * ref['loss'], (got, ref)
+    for key in ('grad', 'stats'):
+        assert all(g <= BAND * r for g, r in zip(got[key], ref[key])), (key, got, ref)
+    return got, ref
+
+
+def remat_config(remat, channels=(16,) * 6, task='SemiSupEdgeCompletionModel'):
+    """The training config with dropout 0.5 and flip 0.5 on, as ``task``
+    (whose loss reads the RGBD pass, so its backward reruns the SAN)."""
+    cfg = train_config(channels, dropout=0.5, flip_lr_prob=0.5)
+    cfg.model.name = task
+    cfg.model.depth_net.remat = remat
+    return cfg
+
+
+def remat_vs_plain(dev, configs, batch):
+    """One step of each config of ``configs`` ({remat: config}, False among
+    them) from the same weights, batch and generator seed on ``dev``; the
+    config without remat twice, for the run-to-run noise of the card's
+    reductions -> {remat: gaps against the step without remat}, the bound,
+    the noise.  Each holds the same draws (generator state,
+    ``num_batches_tracked``) and its loss, gradients and running statistics
+    within the bound: 4 times the noise's worst, and at least
+    ``GRAD_RTOL``, the gradient tolerance of the card-vs-CPU step.  (One
+    pair of runs gauges the noise loosely: the step without remat measured
+    3.3e-6 against itself, then 3.2e-5 against the remat step, on one
+    card; on the CPU the two are bit-equal, tests/test_torch_remat.py.)"""
+    plain = step_outcome(configs[False], batch, dev)
+    noise = outcome_gaps(step_outcome(configs[False], batch, dev), plain)
+    bound = max(4 * max(noise['loss'], *noise['grad'], *noise['stats']), GRAD_RTOL)
+    gaps = {}
+    for remat, cfg in configs.items():
+        if remat is False:
+            continue
+        gaps[remat] = g = outcome_gaps(step_outcome(cfg, batch, dev), plain)
+        assert g['counts'] and g['generator'], \
+            f'remat {remat!r}: other dropout draws or statistics counts'
+        worst = max(g['loss'], *g['grad'], *g['stats'])
+        assert worst <= bound, f'remat {remat!r}: {g} beyond {bound:.3e}'
+    return gaps, bound, noise
+
+
 @pytest.fixture
 def cuda_card():
     if not torch.cuda.is_available():
@@ -471,3 +573,14 @@ def test_checkpoint_round_trip_on_card(cuda_card, tmp_path):
             assert torch.equal(s[key].cpu(), got['state'][i][key].cpu()), (i, key)
     assert restored.scheduler.state_dict() == state.scheduler.state_dict()
     assert restored.optimizer.param_groups[0]['lr'] == state.optimizer.param_groups[0]['lr']
+
+
+@pytest.mark.cuda
+def test_bf16_train_step_card_matches_cpu_within_band(cuda_card):
+    bf16_card_vs_cpu(cuda_card)
+
+
+@pytest.mark.cuda
+def test_remat_step_on_card_equals_plain_step(cuda_card):
+    batch = synthetic_batch(np.random.RandomState(0), 2, 64, 96)
+    remat_vs_plain(cuda_card, {r: remat_config(r) for r in (False, True, 'conv')}, batch)

@@ -219,20 +219,21 @@ def test_dropout_drops_whole_channels():
     """Dropout2d on the residual shortcut: whole channels drop, the kept
     ones are scaled by 1/(1-p), the same generator seed gives the same
     mask, and eval does nothing."""
+    keep = lambda seed: blocks.dropout_keep(3, 16, 0.5, 'cpu', torch.Generator().manual_seed(seed))
     x = torch.rand(3, 16, 8, 12) + 0.5
-    y = blocks.channel_dropout(x, 0.5, torch.Generator().manual_seed(3))
+    y = blocks.channel_dropout(x, 0.5, keep(3))
     dropped = (y == 0).all(dim=(2, 3))
     kept = ~dropped
     assert dropped.any() and kept.any()
     assert torch.equal(y[kept], (x / 0.5)[kept])
-    again = blocks.channel_dropout(x, 0.5, torch.Generator().manual_seed(3))
+    again = blocks.channel_dropout(x, 0.5, keep(3))
     assert torch.equal(y, again)
     block = blocks.ResidualConv(16, 16, dropout=0.5)
     with torch.no_grad():
-        eval_out = block.eval()(x, torch.Generator().manual_seed(0))
-        assert torch.equal(eval_out, block(x, torch.Generator().manual_seed(1)))
-        train_a = block.train()(x, torch.Generator().manual_seed(2))
-        train_b = block.train()(x, torch.Generator().manual_seed(2))
+        eval_out = block.eval()(x, keep(0))
+        assert torch.equal(eval_out, block(x, keep(1)))
+        train_a = block.train()(x, keep(2))
+        train_b = block.train()(x, keep(2))
     assert torch.equal(train_a, train_b) and not torch.equal(train_a, eval_out)
 
 
