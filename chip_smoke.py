@@ -129,6 +129,35 @@ Run from the repository root, on a machine with one CUDA card and nvcc.
       the CPU's own bf16-vs-fp32 gap, and remat vs none on the card with
       dropout and flip on (``tests/test_torch_train_cuda.py``).
    No launch on the training phases.
+11. Data parallelism across processes (``parallel/``; no kernel on these
+   paths: the NMS kernel must launch 0 times).
+   a. NCCL at world size 1 (a ``file://`` store): one step's loss,
+      gradients and running statistics against the plain step from the
+      same weights, within 4x the card's noise of two plain steps (at least
+      1e-4, 7a's tolerance), as 10e; then 7b's config, batch and seed
+      through ``make_dp_train_step``, 2 warm-up and 5 timed steps: ms per
+      step, peak, and the loss of every step within ``RUN_RTOL`` of 7b's,
+      beside a second plain run's gap to 7b (the card's nondeterministic
+      reductions part runs of the same arithmetic by up to ~4e-3 in 7
+      steps); one all-reduce of gradients shaped like the network's alone,
+      by CUDA events.
+   b. Two spawned ranks over gloo on the one card (``device='cuda:0'``
+      each; ``tests/test_torch_dp_cuda.oracle_job``): one data-parallel
+      step at [2 per rank, 64, 96], (16,)*6, against rank 0's oracle (the
+      mean of the two ranks' plain steps on the card) within 7a's
+      tolerances, both ranks' parameters bit-equal; then 3 full-width steps
+      of 7b's config a rank after one warm-up, ms and peak per rank, and
+      one all-reduce alone: gloo reduces the card's tensors through the
+      host, so these are no speed figure for NCCL.
+   c. ``python -m torch.distributed.run --standalone --nproc_per_node 1``
+      of ``cli.train_edges`` on 7c's split resized to 96x320, 1 epoch
+      without validation (a fresh process autotunes every conv shape,
+      about a minute at full width): the group comes up (NCCL, world 1),
+      the checkpoint and ``metrics.jsonl`` are written.
+   d. ``cli.infer_edges --dp 1 --wire u16`` under the same launcher on the
+      first 8 frames of phase 9's split: every depth within one u16 code
+      of phase 9's files (both fresh processes, same weights; cuDNN's
+      autotuner may pick other algorithms, so not byte-equal).
 
 Prints one line per phase, each phase's wall time, then the card's name
 and power limit, a JSON line of the kernels, and as its last line
@@ -145,6 +174,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import ProfilerActivity, profile
 
 from mindtheedge_tpu_torch import serve
@@ -153,14 +183,16 @@ from mindtheedge_tpu_torch.cli import infer_edges, train_edges
 from mindtheedge_tpu_torch.cli.infer_edges import infer_batch
 from mindtheedge_tpu_torch.config import get_cfg_defaults, parse_train_file
 from mindtheedge_tpu_torch.models.packnet import SLIM_CHANNELS, to_train_device
-from mindtheedge_tpu_torch.models.tasks import build_task
+from mindtheedge_tpu_torch.models.tasks import build_depth_net, build_task
 from mindtheedge_tpu_torch.ops import edge_ops, wire
 from mindtheedge_tpu_torch.ops.cuda import build, nms_kernel
+from mindtheedge_tpu_torch.parallel.mesh import all_reduce_mean, make_dp_train_step
 from mindtheedge_tpu_torch.training.checkpoint import load_checkpoint
 from mindtheedge_tpu_torch.training.experiment import Experiment
 from mindtheedge_tpu_torch.training.train_step import create_train_state, make_train_step
 from tests.test_torch_annotate_cuda import (
     annotate_card_vs_cpu, random_frames, task_config)
+from tests.test_torch_dp_cuda import dp_vs_plain, oracle_gaps, oracle_job, start_ranks
 from tests.test_torch_train_cuda import write_kitti_tree
 from tests.test_torch_nms_kernel import dyadic_patch, gaussian_blur, misaligned
 from tests.test_torch_train_cuda import (
@@ -189,6 +221,13 @@ EVAL_DIR = 'build/eval_smoke'
 EVAL_FRAMES = 115                       # KITTI-DE's split, kitti_115_split.txt
 EVAL_H, EVAL_W = 375, 1242              # KITTI's frames and GT
 EVAL_THRESHOLDS = 12                    # Canny thresholds 20..240 of the protocol
+DP_DIR = 'build/dp_smoke'
+# 11a: the loss of each of 7 steps against 7b's.  The card's nondeterministic
+# reductions decide near-ties of the edge loss, so runs of the same
+# arithmetic part onto trajectories up to 3.9e-3 apart by the 7th step (7b
+# against 10e's remat runs and against 11a, NVIDIA H100 80GB HBM3, 700 W)
+RUN_RTOL = 1e-2
+DP_INFER_FRAMES = 8                     # phase 11d: the first frames of phase 9's split
 
 
 def check(ok, what):
@@ -734,15 +773,15 @@ def stage_ms(task, state, batch, gen):
     return {n: events[2 * i].elapsed_time(events[2 * i + 1]) for i, n in enumerate(names)}
 
 
-def train_full(dev, cfg, batch, label):
-    """``TRAIN_WARMUP`` + ``TRAIN_STEPS`` full-width training steps of the
-    task of ``cfg`` on ``batch``, from the weights and generator of
-    ``cfg.arch.seed`` -> (mean ms per step, peak bytes, the loss of every
-    step, warm-ups first)."""
+def train_full(dev, cfg, batch, label, make_step=make_train_step):
+    """``TRAIN_WARMUP`` + ``TRAIN_STEPS`` full-width training steps made by
+    ``make_step`` of the task of ``cfg`` on ``batch``, from the weights and
+    generator of ``cfg.arch.seed`` -> (mean ms per step, peak bytes, the
+    loss of every step, warm-ups first)."""
     task = build_task(cfg, device=dev)
     net = to_train_device(task.depth_net, dev)
     state = create_train_state(cfg, net, pose_net=task.pose_net)
-    step = make_train_step(task)
+    step = make_step(task)
     gen = torch.Generator(dev).manual_seed(cfg.arch.seed)
     params = state.parameters()
     torch.cuda.reset_peak_memory_stats()
@@ -949,14 +988,14 @@ def phase_train_cli(dev):
           f'{steps.pop()}')
 
 
-# a fresh interpreter runs the CLI as ``python -m`` does, then reports the
-# NMS kernel's launches in that process
-EVAL_RUNNER = ("import runpy, sys\n"
-               "from mindtheedge_tpu_torch.ops.cuda import nms_kernel\n"
-               "sys.argv = ['infer_edges'] + sys.argv[1:]\n"
-               "nms_kernel.launches = 0\n"
-               "runpy.run_module('mindtheedge_tpu_torch.cli.infer_edges', run_name='__main__')\n"
-               "print(f'NMS launches {nms_kernel.launches}')\n")
+# a fresh interpreter runs the CLI module named by its first argument as
+# ``python -m`` does, then reports the NMS kernel's launches in that process
+CLI_RUNNER = ("import runpy, sys\n"
+              "from mindtheedge_tpu_torch.ops.cuda import nms_kernel\n"
+              "module, sys.argv = sys.argv[1], sys.argv[1:]\n"
+              "nms_kernel.launches = 0\n"
+              "runpy.run_module(module, run_name='__main__')\n"
+              "print(f'NMS launches {nms_kernel.launches}')\n")
 
 
 def native_files():
@@ -1005,7 +1044,8 @@ def phase_eval():
     write_s = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, '-c', EVAL_RUNNER, '--config', yaml_path,
+    proc = subprocess.run([sys.executable, '-c', CLI_RUNNER,
+                           'mindtheedge_tpu_torch.cli.infer_edges', '--config', yaml_path,
                            '--batch', str(B), '--wire', 'u16'],
                           capture_output=True, text=True, timeout=900)
     wall_s = time.perf_counter() - t0
@@ -1183,6 +1223,176 @@ def phase_small_bf16_remat(dev):
           f'remat {fmt(noise)}; bound {bound:.3e}')
 
 
+def phase_dp_nccl(dev, losses7b):
+    """11a: the data-parallel step in a process group of one over NCCL ->
+    the NMS kernel's launches."""
+    os.makedirs(DP_DIR, exist_ok=True)
+    store = os.path.abspath(os.path.join(DP_DIR, 'nccl_store'))
+    if os.path.exists(store):
+        os.remove(store)
+    dist.init_process_group('nccl', init_method=f'file://{store}', rank=0, world_size=1)
+    nms_kernel.launches = 0
+    try:
+        cfg, batch = train_config(), full_width_batch(dev)
+        gaps, bound, noise = dp_vs_plain(dev, cfg, batch)
+        ms, peak, losses = train_full(dev, cfg, batch, 'phase 11a data-parallel (NCCL, '
+                                      'world 1) train', make_step=make_dp_train_step)
+        _, _, again = train_full(dev, cfg, batch, 'phase 11a plain train again')
+        gap = lambda run: [abs(a - b) / abs(b) for a, b in zip(run, losses7b)]
+        by_step, by_step_plain = gap(losses), gap(again)
+        check(max(by_step) <= RUN_RTOL,
+              f'11a loss by step {by_step} against 7b beyond {RUN_RTOL} (a plain run: '
+              f'{by_step_plain})')
+        with torch.device('meta'):
+            shapes = [p.shape for p in build_depth_net(cfg.model.depth_net).parameters()]
+        grads = [torch.rand(shape, device=dev) for shape in shapes]
+        all_reduce_mean(grads)
+        # it holds the host until the card is idle (5 calls behind event_ms's
+        # 0.5 s sleep took 0.513 s to enqueue), so event_ms's check cannot hold
+        all_reduce_ms = sync_ms(lambda i: all_reduce_mean(grads), 5)
+    finally:
+        dist.destroy_process_group()
+    numel = sum(g.numel() for g in grads)
+    print(f'phase 11a loss by step against 7b (relative), data-parallel / a second plain '
+          f'run: ' + ', '.join(f'{a:.3e} / {b:.3e}' for a, b in zip(by_step, by_step_plain))
+          + f' (bound {RUN_RTOL:g}: the same draws, but the card\'s reductions decide '
+          f'near-ties that Adam and the edge loss amplify step by step)'
+          + f'; one step against the plain step, same weights and generator: loss '
+          f'{gaps["loss"]:.3e}, gradients {gaps["grad"][0]:.3e} / {gaps["grad"][1]:.3e} '
+          f'(median / max over its tensor\'s largest), running statistics '
+          f'{gaps["stats"][0]:.3e} / {gaps["stats"][1]:.3e}; bound {bound:.3e} (4 x two '
+          f'plain steps, {max(noise["loss"], *noise["grad"], *noise["stats"]):.3e}, at '
+          f'least {GRAD_RTOL:g}); {ms:.3f} ms/step, peak {peak / 2**30:.3f} GiB; one '
+          f'all-reduce (mean) of {numel} fp32 gradients in {len(grads)} tensors, coalesced, '
+          f'{all_reduce_ms:.3f} ms by CUDA events (5 in a row)')
+    return nms_kernel.launches
+
+
+def phase_dp_gloo(dev):
+    """11b: two spawned ranks over gloo sharing the card."""
+    os.makedirs(DP_DIR, exist_ok=True)
+    config = os.path.join(DP_DIR, 'train_fp32.yaml')
+    train_config().save_yaml(config)
+    batch = os.path.join(DP_DIR, 'batch.pt')
+    torch.save({k: v.cpu() for k, v in full_width_batch(dev).items()}, batch)
+    ranks = start_ranks([(oracle_job, {'device': 'cuda:0', 'full_config': config,
+                                       'full_batch': batch})], 2, os.path.join(DP_DIR, 'gloo'),
+                        threads=max(os.cpu_count() // 2, 1))
+    results = ranks.result(0)
+    gaps = oracle_gaps(results)
+    print(f'phase 11b 2 ranks over gloo on one card, [2 per rank,64,96] (16,)*6: one '
+          f'data-parallel step against rank 0\'s oracle (the mean of both ranks\' plain '
+          f'steps on the card): loss {gaps["loss"]:.3e}, worst gradient '
+          f'{gaps["grad"]:.3e} of its tensor\'s largest (bound {GRAD_RTOL:g}), running '
+          f'statistics {gaps["stats"]:.3e} (rtol 1e-4); both ranks\' parameters and '
+          f'buffers bit-equal')
+    for r, res in enumerate(results):
+        full = res['full']
+        check(all(np.isfinite(full['losses'])), f'11b rank {r} losses {full["losses"]}')
+        print(f'phase 11b rank {r}, full width {H}x{W} b{TRAIN_B} fp32, '
+              f'{full["parameters"]} parameters, gloo through the host (no NCCL speed '
+              f'figure), both ranks on one card: {len(full["ms"])} steps after 1 warm-up, '
+              + ', '.join(f'{m:.3f}' for m in full['ms'])
+              + f' ms by CUDA events, peak {full["peak"] / 2**30:.3f} GiB; one gradient '
+              f'all-reduce alone {full["all_reduce_ms"]:.3f} ms (host clock); losses '
+              + ', '.join(f'{v:.6f}' for v in full['losses']))
+
+
+def launched(module, *argv):
+    """``python -m torch.distributed.run --standalone --nproc_per_node 1``
+    of the CLI ``module`` under :data:`CLI_RUNNER` -> (its output, wall
+    seconds, the NMS kernel's launches)."""
+    runner = os.path.abspath(os.path.join(DP_DIR, 'run_cli.py'))
+    with open(runner, 'w') as f:
+        f.write(CLI_RUNNER)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+         '--nproc_per_node', '1', runner, module, *argv],
+        capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=os.getcwd()))
+    wall = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    with open(os.path.join(DP_DIR, module.rsplit('.', 1)[-1] + '.log'), 'w') as f:
+        f.write(log)
+    check(proc.returncode == 0, f'{module} under torch.distributed.run exited '
+          f'{proc.returncode}: {log[-3000:]}')
+    found = re.search(r'NMS launches (\d+)', proc.stdout)
+    check(found is not None, f'{module}: no launch count printed')
+    check('Distributed: process 0 of 1, backend nccl, device cuda:0' in proc.stdout,
+          f'{module}: the process group did not come up over NCCL: {log[-3000:]}')
+    return proc.stdout, wall, int(found.group(1))
+
+
+def phase_dp_train_cli():
+    """11c: ``cli.train_edges`` under the launcher on 7c's split -> the NMS
+    kernel's launches."""
+    out = os.path.join(DP_DIR, 'train_cli')
+    import shutil
+    shutil.rmtree(out, ignore_errors=True)
+    cfg = train_config()
+    cfg.arch.max_epochs = 1
+    cfg.datasets.train.batch_size = 2
+    cfg.datasets.train.path = ['']
+    cfg.datasets.train.split = [os.path.join(SMOKE_DIR, 'data', 'split.txt')]
+    cfg.datasets.validation.split = ['']    # 7c validates; a fresh process would autotune it
+    # resized to 8c's 96x320: cuDNN's autotuner in a fresh process takes
+    # about a minute at 384x1280
+    cfg.datasets.augmentation.image_shape = (KITTI_H, KITTI_W)
+    cfg.checkpoint.filepath = os.path.join(out, 'checkpoints')
+    yaml_path = os.path.join(DP_DIR, 'train_cli.yaml')
+    cfg.save_yaml(yaml_path)
+    _, wall, launches = launched('mindtheedge_tpu_torch.cli.train_edges', yaml_path)
+    files = os.listdir(cfg.checkpoint.filepath)
+    ckpts = [f for f in files if f.endswith('.ckpt')]
+    check(len(ckpts) == 1 and 'metrics.jsonl' in files, f'11c wrote {files}')
+    print(f'phase 11c torch.distributed.run --standalone --nproc_per_node 1 -m '
+          f'mindtheedge_tpu_torch.cli.train_edges, 7c\'s split at {KITTI_H}x{KITTI_W} (4 '
+          f'frames, batch 2, 1 epoch, no validation): group up over NCCL at world 1, '
+          f'wrote {ckpts[0]} and metrics.jsonl; {wall:.1f} s wall with the launcher; nms '
+          f'launches {launches}')
+    return launches
+
+
+def phase_dp_infer_cli():
+    """11d: ``cli.infer_edges --dp 1`` under the launcher on the first
+    frames of phase 9's split, against phase 9's files -> the NMS kernel's
+    launches."""
+    import yaml
+    out = os.path.join(DP_DIR, 'infer_cli')
+    import shutil
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    with open(os.path.join(EVAL_DIR, 'data', 'split.txt')) as f:
+        lines = f.read().splitlines()[:DP_INFER_FRAMES]
+    split = os.path.join(out, 'split.txt')
+    with open(split, 'w') as f:
+        f.writelines(ln + '\n' for ln in lines)
+    with open(EVAL_CONFIG) as f:
+        cfg = yaml.safe_load(f)
+    cfg['datasets']['test']['split'] = [split]
+    cfg['save']['folder'] = os.path.join(out, 'out')
+    cfg['analysis']['run_metrics'] = cfg['analysis']['run_heavy_edge_metrics'] = False
+    yaml_path = os.path.join(out, 'infer.yaml')
+    with open(yaml_path, 'w') as f:
+        yaml.safe_dump(cfg, f)
+    _, wall, launches = launched('mindtheedge_tpu_torch.cli.infer_edges', '--config', yaml_path,
+                                 '--batch', str(B), '--dp', '1', '--wire', 'u16')
+    worst = 0.0
+    for i in range(DP_INFER_FRAMES):
+        name = f'{i:08d}_regular.npy'
+        got = np.load(os.path.join(out, 'out', name))
+        want = np.load(os.path.join(EVAL_DIR, 'out', name))
+        worst = max(worst, float(np.abs(got - want).max()))
+    check(worst <= 1.0 / 256 + 1e-6, f'11d depth {worst} m off phase 9\'s, over one u16 code')
+    print(f'phase 11d torch.distributed.run --standalone --nproc_per_node 1 -m '
+          f'mindtheedge_tpu_torch.cli.infer_edges --dp 1 --wire u16, {DP_INFER_FRAMES} '
+          f'frames of phase 9: worst depth difference to phase 9\'s files {worst:.6f} m '
+          f'({worst * 256:.3f} u16 codes, bound 1); {wall:.1f} s wall with the launcher; '
+          f'nms launches {launches}')
+    return launches
+
+
 def card_line():
     out = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
@@ -1245,6 +1455,14 @@ def main():
         launches10[name] = nms_kernel.launches
         check(launches10[name] == 0,
               f'NMS kernel launched {launches10[name]} times in phase {name}')
+    t11 = time.perf_counter()
+    launches11 = {'11a': timed('11a', phase_dp_nccl, dev, losses7b)}
+    timed('11b', phase_dp_gloo, dev)
+    launches11['11c'] = timed('11c', phase_dp_train_cli)
+    launches11['11d'] = timed('11d', phase_dp_infer_cli)
+    for name, n in launches11.items():
+        check(n == 0, f'NMS kernel launched {n} times in phase {name}')
+    print(f'phase 11 wall time {time.perf_counter() - t11:.1f} s')
     print('phase wall times (s): ' + ', '.join(f'{k} {v:.1f}' for k, v in walls.items()))
     print(f'chip_smoke wall time {time.perf_counter() - t0:.1f} s')
     card = card_line()
@@ -1254,14 +1472,18 @@ def main():
         'source': 'mindtheedge_tpu_torch/csrc/nms_kernel.cu',
         'replaces': 'mindtheedge_tpu/ops/pallas/nms_kernel.py:111',
         'launches': (launches4 + launches5 + launches6 + launches7 + launches8 + launches9
-                     + launches10a + launches10b + launches10c + sum(launches10.values())),
+                     + launches10a + launches10b + launches10c + sum(launches10.values())
+                     + sum(launches11.values())),
         'launches_by_path': {'serve': launches4, 'annotate': launches5,
                              'infer': launches6, 'train': launches7,
                              'train_dee_completion_selfsup': launches8,
                              'eval': launches9, 'serve_bf16': launches10a,
                              'annotate_bf16': launches10b, 'infer_bf16': launches10c,
                              'train_bf16': launches10['10d'],
-                             'train_remat': launches10['10e']},
+                             'train_remat': launches10['10e'],
+                             'train_dp_nccl': launches11['11a'],
+                             'train_dp_cli': launches11['11c'],
+                             'infer_dp_cli': launches11['11d']},
         'max_abs_err': max(err2, err4, err5, err10),
         'mismatched_px': bad2 + bad4 + bad5 + bad10,
         'checked_px': px2 + prob.numel() + px5 + prob10.numel(),

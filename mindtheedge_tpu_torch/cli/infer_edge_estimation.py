@@ -14,7 +14,8 @@ NMS CUDA kernel (``ops/cuda/nms_kernel``) and runs hysteresis.  Outputs
 ``{idx:08d}_lidar[_{s:03d}].png/.npy`` edge maps (``_regular`` for the
 RGB-only pass), ``normals/{idx:08d}_lidar[_{s:03d}].png`` angle maps and the
 8-column ``rgb_lidar_edges_split.txt``.  The card is used unless ``main``
-is given ``device='cpu'``.
+is given ``device='cpu'``.  Under a launcher of several processes each
+process annotates the whole split, as the JAX CLI's do.
 """
 
 import argparse
@@ -27,6 +28,7 @@ from mindtheedge_tpu_torch.config import get_cfg_defaults, parse_test_file, prep
 from mindtheedge_tpu_torch.models.tasks import build_task
 from mindtheedge_tpu_torch.ops.cuda.nms_kernel import non_max_suppression
 from mindtheedge_tpu_torch.ops.edge_ops import hysteresis_counted, normals_angle_255
+from mindtheedge_tpu_torch.parallel.distributed import maybe_initialize_distributed
 
 
 def parse_args(argv=None):
@@ -81,6 +83,7 @@ def annotate_batch(task, rgb, lidar=None, scales=4, nms=True, hyst=True,
 
 def main(argv=None, device=None):
     args = parse_args(argv)
+    maybe_initialize_distributed(device)
     import cv2
     from mindtheedge_tpu_torch.data.augmentations import (
         resize_depth_preserve, resize_image)

@@ -1,10 +1,12 @@
-"""Batched depth inference over a split file, on one card, then the
-evaluation on the host.
+"""Batched depth inference over a split file, on one card or data-parallel
+on several, then the evaluation on the host.
 
 Counterpart of ``mindtheedge_tpu/cli/infer_edges.py``::
 
     python -m mindtheedge_tpu_torch.cli.infer_edges --config <yaml> \\
         [--batch 4] [--wire {u16,u8,f32}]
+    torchrun --nproc_per_node N -m mindtheedge_tpu_torch.cli.infer_edges \\
+        --config <yaml> --batch 4 [--dp N]
 
 Outputs, as there (reference ``infer_edges.py:349-366``): per image
 ``{idx:08d}_regular.npy`` (metric depth), ``_regular.png`` (depth/max*255),
@@ -21,8 +23,16 @@ Then ``run_post_metrics`` (``infer_edges.py:405-442``): with
 ``analysis.run_heavy_edge_metrics``, the edge AUC (``edge_AUC.txt``, the
 Canny JPEGs in ``temp_output/``, the PR plot where matplotlib exists).
 
-Not ported here: multi-device serving (``--spatial``, ``--dp``; ROADMAP
-Slice E), which exits before any work.  The card is used unless ``main`` is
+``--dp N`` (``infer_edges.py:262-273, 303-314``) runs over the N processes
+of a ``torchrun`` launch, one card each; ``--batch`` is the global batch,
+which N must divide, and ``--dp -1`` (the default) means the number of
+processes.  Rank r infers the r-th contiguous ``batch / N`` frames of each
+global batch and writes their files under their split index; after a
+barrier, rank 0 writes ``pred_list.txt`` in split order and runs the
+metrics.  ``--dp N`` without a group of N processes exits before any work.
+
+Not ported here: spatial sharding (``--spatial``, ROADMAP Slice E, item
+20), which exits before any work.  The card is used unless ``main`` is
 given ``device='cpu'``.
 """
 
@@ -36,6 +46,8 @@ import torch
 from mindtheedge_tpu_torch.config import get_cfg_defaults, parse_test_file, prepare_config
 from mindtheedge_tpu_torch.models.tasks import build_task
 from mindtheedge_tpu_torch.ops import wire
+from mindtheedge_tpu_torch.parallel.distributed import (
+    barrier, is_main_process, maybe_initialize_distributed, rank, world_size)
 from mindtheedge_tpu_torch.utils.colormap import spectral_u8
 from mindtheedge_tpu_torch.utils.depth import inv2depth
 
@@ -54,10 +66,12 @@ def parse_args(argv=None):
                         help='Inference batch size (device batching)')
     parser.add_argument('--spatial', type=str, default='0',
                         help='Spatial sharding over devices: not ported '
-                             '(ROADMAP Slice E); only 0 / 1 are accepted')
+                             '(ROADMAP Slice E, item 20); only 0 / 1 are accepted')
     parser.add_argument('--dp', type=int, default=-1,
-                        help='Data-parallel devices: not ported (ROADMAP '
-                             'Slice E); only -1 / 0 / 1 are accepted')
+                        help='Data-parallel processes, one a device, under '
+                             'torchrun --nproc_per_node N: each takes its '
+                             'share of every --batch.  -1 = the number of '
+                             'processes, 0/1 = one process')
     parser.add_argument('--wire', choices=('u16', 'u8', 'f32'), default='u16',
                         help='Depth downlink format: u16 = KITTI 1/256 m '
                              'storage format; u8 = the edge-AUC protocol\'s '
@@ -67,12 +81,23 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def _refuse_unported(args):
-    """Exit before any work where the run asks for what is not ported."""
-    if (args.spatial or '0').strip().lower() not in ('0', '1', '1x1') \
-            or args.dp > 1:
-        raise SystemExit('--spatial / --dp (multi-device serving) are not '
-                         'ported yet: ROADMAP Slice E')
+def _dp_processes(args):
+    """The data-parallel process count ``--dp`` asks for; exits before any
+    work where it is not the process group's, or where ``--spatial`` asks
+    for what is not ported."""
+    if (args.spatial or '0').strip().lower() not in ('0', '1', '1x1'):
+        raise SystemExit('--spatial (spatial sharding with halo exchange) is not '
+                         'ported yet: ROADMAP Slice E, item 20')
+    world = world_size()
+    n_dp = world if args.dp < 0 else max(args.dp, 1)
+    if args.batch % n_dp:
+        raise SystemExit(f'--dp {n_dp} must divide --batch {args.batch}')
+    if n_dp != world:
+        raise SystemExit(
+            f'--dp {n_dp} needs {n_dp} processes, one a device, and {world} '
+            f'run: launch with torchrun --nproc_per_node {n_dp} -m '
+            'mindtheedge_tpu_torch.cli.infer_edges')
+    return n_dp
 
 
 def _read_inputs(line, config, image_shape):
@@ -181,6 +206,7 @@ def start_readback(t):
 
 def main(argv=None, device=None):
     args = parse_args(argv)
+    maybe_initialize_distributed(device)
     cfg = get_cfg_defaults()
     cfg.merge_from_file(args.config)
     cfg = prepare_config(cfg)
@@ -191,7 +217,7 @@ def main(argv=None, device=None):
     else:
         print(f'WARNING: checkpoint {ckpt_path!r} not found — random init '
               '(smoke/benchmark mode)')
-    _refuse_unported(args)
+    n_dp = _dp_processes(args)
 
     image_shape = tuple(cfg.datasets.augmentation.image_shape) or None
     task = build_task(cfg, device, ckpt)
@@ -208,28 +234,31 @@ def main(argv=None, device=None):
         sparse_cap = (image_shape[0] * image_shape[1]) // 8
     decode = _DECODERS[args.wire]
 
-    pred_files = []
+    out_base = lambda i: os.path.join(cfg.save.folder, str(i).zfill(8))
     counter = 0
     t0 = time.perf_counter()
 
     def drain(entry):
         nonlocal counter
-        (host, done), n_items = entry
+        (host, done), ids = entry
         if done is not None:
             done.synchronize()
         depth = decode(host).numpy()
-        for b in range(n_items):
-            out_base = os.path.join(cfg.save.folder, str(counter).zfill(8))
-            save_depth_outputs(depth[b], out_base)
-            pred_files.append(out_base + '_regular.npy')
+        for b, i in enumerate(ids):
+            save_depth_outputs(depth[b], out_base(i))
             counter += 1
 
+    # this rank's frames: the rank-th contiguous share of each global batch
+    share = args.batch // n_dp
+    first = rank() * share
     in_flight = []
     for i in range(0, len(lines), args.batch):
-        chunk = lines[i:i + args.batch]
-        inputs = [_read_inputs(ln, cfg, image_shape) for ln in chunk]
+        ids = range(i + first, min(i + first + share, len(lines)))
+        if not ids:
+            continue
+        inputs = [_read_inputs(lines[j], cfg, image_shape) for j in ids]
         # pad the tail chunk to keep one batch shape
-        inputs += [inputs[-1]] * (args.batch - len(inputs))
+        inputs += [inputs[-1]] * (share - len(inputs))
         rgb = upload(np.stack([r for r, _ in inputs]), dev)
         lidar = None
         if inputs[0][1] is not None:
@@ -247,7 +276,7 @@ def main(argv=None, device=None):
             else:
                 lidar = upload(np.stack([l for _, l in inputs]), dev)
         depth = infer_batch(task, rgb, lidar, args.wire)
-        in_flight.append((start_readback(depth), len(chunk)))
+        in_flight.append((start_readback(depth), ids))
         if len(in_flight) > LAG:
             drain(in_flight.pop(0))
             print(f'Processed {counter}/{len(lines)}')
@@ -256,6 +285,10 @@ def main(argv=None, device=None):
     print(f'Processed {counter}/{len(lines)}')
     print(f'Inference of {counter} frames: {time.perf_counter() - t0:.3f} s')
 
+    barrier()      # every rank's files are written
+    if not is_main_process():
+        return
+    pred_files = [out_base(i) + '_regular.npy' for i in range(len(lines))]
     with open(os.path.join(cfg.save.folder, 'pred_list.txt'), 'w') as f:
         f.writelines(p + '\n' for p in pred_files)
 

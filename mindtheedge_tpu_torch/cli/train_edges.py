@@ -2,9 +2,13 @@
 (reference root ``train_edges.py``).
 
     python -m mindtheedge_tpu_torch.cli.train_edges <config.yaml|checkpoint.ckpt>
+    torchrun --nproc_per_node N -m mindtheedge_tpu_torch.cli.train_edges <config.yaml>
 
-Trains on the card; from Python, ``main(argv, device='cpu')`` runs the
-plain PyTorch path on the CPU.  A ``.ckpt`` resumes from that checkpoint;
+Trains on the card, or data-parallel on N cards under ``torchrun``
+(``parallel/distributed.maybe_initialize_distributed`` first, as
+``train_edges.py:17-18``; ``datasets.train.batch_size`` per card); from
+Python, ``main(argv, device='cpu')`` runs the plain PyTorch path on the
+CPU.  A ``.ckpt`` resumes from that checkpoint;
 a yaml whose checkpoint directory already holds checkpoints resumes from
 the newest.  The shipped ``configs/train_packnet_san_kitti_with_edges.yaml``
 trains as written, in bf16 (``arch.precision: bfloat16``: the depth
@@ -17,6 +21,8 @@ precision resumes in the other.
 import argparse
 
 from mindtheedge_tpu_torch import resolve_device
+from mindtheedge_tpu_torch.parallel.distributed import (
+    is_main_process, maybe_initialize_distributed)
 
 
 def parse_args(argv=None):
@@ -27,13 +33,16 @@ def parse_args(argv=None):
 
 
 def train(file, device=None):
-    """Train from ``file`` on ``device`` (``None`` -> CUDA) -> the
-    ``Experiment``, its final state in ``.state``."""
+    """Train from ``file`` on ``device`` (``None`` -> CUDA, the launcher's
+    local rank's card under ``torchrun``) -> the ``Experiment``, its final
+    state in ``.state``."""
     from mindtheedge_tpu_torch.config import parse_train_file
     from mindtheedge_tpu_torch.training.experiment import Experiment
+    maybe_initialize_distributed(device)
     device = resolve_device(device)
     config, resume_ckpt = parse_train_file(file)
-    print(f'Run name: {config.name}; resume: {resume_ckpt}')
+    if is_main_process():
+        print(f'Run name: {config.name}; resume: {resume_ckpt}')
     exp = Experiment(config, resume_ckpt=resume_ckpt, device=device)
     exp.fit()
     return exp

@@ -3,6 +3,23 @@
 samples of a batch; a producer thread collates channel-last numpy batches
 ``prefetch`` ahead of the consumer.  The training order is a shuffle by
 ``RandomState(seed + epoch)``, and ``drop_last`` drops a ragged last batch.
+
+Across ``world_size`` processes, rank ``rank`` reads its share:
+
+* with ``drop_last`` (training), the index list is cut into global
+  batches of ``batch_size * world_size`` and the rank takes the
+  ``rank``-th contiguous ``batch_size`` chunk of each.  These are the
+  samples the JAX package's single-host data parallelism gives device
+  ``rank`` (a global batch shuffled as above, split by ``shard_batch``,
+  ``parallel/mesh.py:39-42``), so a step of the port's data-parallel
+  training sees the shards of the JAX step; ``len`` counts global batches,
+  the same on every rank, so the ranks meet at every step's all-reduce.
+  The reference's ``DistributedSampler`` strides by rank instead: each
+  step then holds the same samples split otherwise, and since the pooled
+  losses are not linear in the split, its numbers differ;
+* without it (validation, test), the indices are strided by rank, as the
+  JAX loader does (``loader.py:64-65``); the ranks may then read unequal
+  numbers of batches.
 """
 
 import queue
@@ -35,37 +52,38 @@ def collate(samples):
 
 class DataLoader:
     def __init__(self, dataset, batch_size=1, shuffle=False, num_workers=2,
-                 drop_last=False, seed=42, prefetch=2):
+                 drop_last=False, seed=42, rank=0, world_size=1, prefetch=2):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.num_workers = max(1, num_workers)
         self.drop_last = drop_last
         self.seed = seed
+        self.rank = rank
+        self.world_size = world_size
         self.prefetch = prefetch
         self.epoch = 0
 
     def set_epoch(self, epoch):
         self.epoch = epoch
 
-    def _indices(self):
+    def _batches(self):
+        """This rank's batches of dataset indices, in order."""
         idx = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.RandomState(self.seed + self.epoch).shuffle(idx)
-        return idx
+        b = self.batch_size
+        if self.drop_last:
+            step, lo = b * self.world_size, b * self.rank
+            return [idx[i + lo:i + lo + b] for i in range(0, len(idx) - step + 1, step)]
+        idx = idx[self.rank::self.world_size]
+        return [idx[i:i + b] for i in range(0, len(idx), b)]
 
     def __len__(self):
-        n = len(self.dataset)
-        if self.drop_last:
-            return n // self.batch_size
-        return (n + self.batch_size - 1) // self.batch_size
+        return len(self._batches())
 
     def __iter__(self):
-        idx = self._indices()
-        batches = [idx[i:i + self.batch_size]
-                   for i in range(0, len(idx), self.batch_size)]
-        if self.drop_last:
-            batches = [b for b in batches if len(b) == self.batch_size]
+        batches = self._batches()
 
         q = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()

@@ -1,0 +1,117 @@
+"""Data-parallel training over processes: counterpart of
+``mindtheedge_tpu/parallel/mesh.py`` (``make_dp_train_step``, ``:49-98``;
+reference ``horovod_trainer.py:53-55``).
+
+The reference's contract is a per-process batch: N processes each compute
+the loss over their own ``datasets.train.batch_size`` samples, and the
+gradients are averaged by all-reduce.  The JAX package runs it as one
+``shard_map`` over a device mesh; here it is ``torch.distributed`` with one
+process per GPU, each rank holding a full copy of the networks and the
+optimizer.  ``make_dp_train_step(task)`` is the JAX ``base_step``:
+
+* each rank runs the task's full loss and backward on its own batch;
+* the gradients are all-reduced to their mean before their norm and the
+  update (``make_train_step``'s ``grad_transform``), so every rank takes
+  the same Adam step;
+* the metrics are all-reduced to their mean;
+* after the step, the floating-point buffers (the running statistics of
+  the SAN's ``MaskedBatchNorm`` and of any batch norm in training) are
+  all-reduced to their mean: the JAX package's sync-BN, a documented
+  divergence from Horovod, whose ranks keep their own statistics
+  (``mesh.py:59-61``).  They stay fp32 under bf16 compute.  Under remat
+  the recompute leaves them alone (``ops/remat.recomputing``), so each
+  update is averaged once;
+* the first time the step sees a train state, it broadcasts that state's
+  parameters and buffers from rank 0, so a seeded start or a resumed
+  checkpoint is the same on every rank.
+
+The lr-flip and dropout draws come from the caller's ``torch.Generator``,
+seeded alike on every rank, as the JAX step's ``rng`` is replicated
+(``in_specs=(P(), P(axis_name), P(), P())``, ``:87``).
+
+Each collective runs on one flat buffer of its tensors (one all-reduce of
+the ~111 M gradients a step for the SLIM PackNet-SAN 1A).  It is not
+``DistributedDataParallel``: the tasks run the networks through
+``torch.func.functional_call`` under bf16 and ``torch.utils.checkpoint``
+under remat, both of which bypass or disturb DDP's reducer; parameters that
+no loss reaches keep zero gradients on purpose (``train_step.py``), where
+DDP would need ``find_unused_parameters``; and DDP's
+``broadcast_buffers`` copies rank 0's statistics at each forward, where the
+JAX step averages them after it.  Overlapping the all-reduce with the
+backward is left for later.
+
+The JAX module's ``make_sharded_train_step`` (a global-batch estimator no
+caller uses) is not ported (ROADMAP).
+"""
+
+import torch
+import torch.distributed as dist
+
+from mindtheedge_tpu_torch.parallel.distributed import world_size
+from mindtheedge_tpu_torch.training.train_step import make_train_step
+
+
+def _coalesced(tensors, collective):
+    """Run ``collective`` on one flat copy of ``tensors`` (one dtype) and
+    copy its result back into them."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    collective(flat)
+    with torch.no_grad():
+        for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
+            t.copy_(part.view_as(t))
+
+
+def _by_dtype(tensors):
+    groups = {}
+    for t in tensors:
+        groups.setdefault(t.dtype, []).append(t)
+    return groups.values()
+
+
+def all_reduce_mean(tensors):
+    """Average floating-point ``tensors`` over the processes, in place, with
+    one all-reduce for each dtype among them."""
+    n = world_size()
+
+    def mean(flat):
+        dist.all_reduce(flat)
+        flat.div_(n)
+
+    for group in _by_dtype(tensors):
+        _coalesced(group, mean)
+
+
+def _float_buffers(state):
+    """The floating-point buffers of the state's networks: their running
+    statistics."""
+    return [b for net in state.networks() for b in net.buffers()
+            if b.is_floating_point()]
+
+
+def broadcast_state(state):
+    """Copy rank 0's parameters and buffers to every rank."""
+    tensors = state.parameters() + [b for net in state.networks() for b in net.buffers()]
+    for group in _by_dtype(tensors):
+        _coalesced(group, lambda flat: dist.broadcast(flat, src=0))
+
+
+def make_dp_train_step(task):
+    """``step(state, batch, generator, progress=0.0) -> metrics``: one
+    data-parallel step over the process group (see the module's
+    docstring); ``batch`` is this rank's share.  The metrics, 0-d tensors on
+    the device, are the same on every rank."""
+    inner = make_train_step(task, grad_transform=all_reduce_mean)
+    broadcast_for = None
+
+    def step(state, batch, generator, progress=0.0):
+        nonlocal broadcast_for
+        if broadcast_for is not state:
+            broadcast_state(state)
+            broadcast_for = state
+        metrics = inner(state, batch, generator, progress)
+        names = sorted(metrics)
+        values = torch.stack([metrics[k].detach().float() for k in names])
+        all_reduce_mean([values] + _float_buffers(state))
+        return dict(zip(names, values.unbind()))
+
+    return step

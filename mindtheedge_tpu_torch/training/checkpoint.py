@@ -28,12 +28,16 @@ reference names under ``model.depth_net.`` (and the pose network's under
 ``scheduler``, ``epoch`` (the index of the epoch to run next),
 ``global_step``, ``config`` and ``metrics``.  ``ModelCheckpoint`` names the
 files ``epoch=NN[_f1=...][_<monitor>=...].ckpt`` with the ``b.ckpt``
-collision suffix, keeps the top k and snapshots the port's code beside
-them.  ``restore_train_state`` resumes from such a file.
+collision suffix, keeps the top k, snapshots the port's code beside
+them and, where ``s3_path`` names a bucket, copies each ``s3_frequency``-th
+epoch's file there with ``aws s3 cp``.  Rank 0 is the one writer: the
+other ranks create nothing, and every rank waits after each save until
+the file is whole.  ``restore_train_state`` resumes from such a file.
 """
 
 import os
 import pickle
+import subprocess
 import tarfile
 import zipfile
 
@@ -41,6 +45,7 @@ import numpy as np
 
 import torch
 
+from mindtheedge_tpu_torch.parallel.distributed import barrier, is_main_process
 from mindtheedge_tpu_torch.utils.weights import (
     pose_state_dict_from_jax, resnet_state_dict_from_jax, state_dict_from_jax)
 
@@ -202,16 +207,13 @@ def restore_train_state(state, ckpt):
 
 class ModelCheckpoint:
     """Top-k checkpoint manager (``checkpoint.py:109-210``, reference
-    ``model_checkpoint.py``); this process is the one writer.  The S3 sync
-    (``s3_path``) waits for ROADMAP Queue 1 item 25."""
+    ``model_checkpoint.py``); rank 0 is the one writer (``checkpoint.py:133``)."""
 
     def __init__(self, filepath, monitor='loss', save_top_k=5, mode='auto',
-                 save_freq=5, s3_path='', yaml_path=''):
-        if s3_path:
-            raise NotImplementedError(
-                f'checkpoint.s3_path {s3_path!r}: the S3 sync waits for '
-                'ROADMAP Queue 1 item 25')
+                 save_freq=5, s3_path='', s3_frequency=1, yaml_path=''):
         self.dirpath = filepath
+        self.s3_path = s3_path
+        self.s3_frequency = s3_frequency
         self.monitor = monitor
         self.save_top_k = save_top_k
         self.save_freq = save_freq
@@ -222,6 +224,9 @@ class ModelCheckpoint:
                                  'recall', 'auc')) else 'min'
         self.mode = mode
         self.best = []   # (metric, path, epoch)
+        self.is_writer = is_main_process()
+        if not self.is_writer:
+            return
         os.makedirs(self.dirpath or '.', exist_ok=True)
         # the run's yaml beside the checkpoints (model_checkpoint.py:62-64)
         if yaml_path and os.path.isfile(yaml_path):
@@ -237,6 +242,22 @@ class ModelCheckpoint:
         with tarfile.open(os.path.join(self.dirpath, 'code.tar.gz'), 'w:gz') as tar:
             tar.add(package, arcname=os.path.basename(package),
                     filter=lambda t: None if '__pycache__' in t.name else t)
+
+    def _s3_sync(self, path, epoch):
+        """Copy ``path`` to ``s3_path`` every ``s3_frequency`` epochs, best
+        effort (``checkpoint.py:159-168``, reference
+        ``model_checkpoint.py:83-97``): a failure is printed, not raised."""
+        if not self.s3_path or epoch % max(self.s3_frequency, 1) != 0:
+            return
+        try:
+            out = subprocess.run(['aws', 's3', 'cp', path, self.s3_path],
+                                 capture_output=True, text=True, timeout=600)
+        except (OSError, subprocess.SubprocessError) as e:
+            print(f'S3 sync of {path} to {self.s3_path} failed: {e}')
+            return
+        if out.returncode != 0:
+            print(f'S3 sync of {path} to {self.s3_path} failed '
+                  f'({out.returncode}): {out.stderr.strip()[-500:]}')
 
     def _filename(self, epoch, metrics):
         parts = [f'epoch={epoch:02d}']
@@ -257,9 +278,17 @@ class ModelCheckpoint:
         return path
 
     def check_and_save(self, config, state, metrics):
+        """Save (rank 0), then meet every rank -> the file written, or None
+        on the other ranks."""
+        path = self._save(config, state, metrics) if self.is_writer else None
+        barrier()
+        return path
+
+    def _save(self, config, state, metrics):
         epoch = int(state.epoch)
         path = self._filename(epoch, metrics)
         save_checkpoint(path, config, state, metrics)
+        self._s3_sync(path, epoch)
         value = float(metrics.get(self.monitor, np.nan)) if metrics else np.nan
         self.best.append((value, path, epoch))
         if self.save_top_k and self.save_top_k > 0 and not np.isnan(value):

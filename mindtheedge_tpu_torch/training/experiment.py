@@ -10,7 +10,17 @@ kept on the card until the epoch's end; then StepLR, validation (depth
 metrics with flip post-processing, chamfer edge metrics on the host) and
 the top-k checkpoint.
 
-One device: ``arch.dp_devices > 1`` raises (ROADMAP Queue 1 item 19).
+Data parallelism (``experiment.py:112-135, 244-266``) runs one process per
+device under ``torchrun``: ``arch.dp_devices`` 0 means the process group's
+size, any other value must equal it, and a run asked for more than one
+process without a group raises rather than train alone.
+``datasets.train.batch_size`` stays the per-process batch, as in the
+reference; the training loader gives each rank its chunk of every global
+batch (``data/loader.py``), ``fit`` takes ``parallel/mesh.make_dp_train_step``,
+``validate`` sums its metrics and its count over the ranks, and rank 0
+alone prints, writes the checkpoints and logs the metrics.  Where the JAX
+package shrinks the number of devices to fit a small training set, the
+port raises: a launched process cannot leave.
 """
 
 import os
@@ -27,6 +37,8 @@ from mindtheedge_tpu_torch.data.transforms import get_transforms
 from mindtheedge_tpu_torch.losses.loss_base import ProgressiveScaling
 from mindtheedge_tpu_torch.models.packnet import to_train_device
 from mindtheedge_tpu_torch.models.tasks import build_task
+from mindtheedge_tpu_torch.parallel.distributed import is_main_process, rank, world_size
+from mindtheedge_tpu_torch.parallel.mesh import make_dp_train_step
 from mindtheedge_tpu_torch.training.checkpoint import (
     ModelCheckpoint, load_checkpoint, restore_depth_net, restore_pose_net,
     restore_train_state)
@@ -35,6 +47,7 @@ from mindtheedge_tpu_torch.utils.depth import (
     DEPTH_METRIC_NAMES, compute_depth_metrics, inv2depth, post_process_inv_depth)
 from mindtheedge_tpu_torch.utils.image import flip_lr
 from mindtheedge_tpu_torch.utils.profiling import StepTimer
+from mindtheedge_tpu_torch.utils.reduce import reduce_value
 from mindtheedge_tpu_torch.utils.wandb_logger import WandbLogger
 
 
@@ -66,10 +79,13 @@ def setup_dataset(cfg, mode, **kwargs):
 
 
 def setup_dataloader(dataset, cfg, mode, seed=42):
+    """This rank's loader: its chunk of each global training batch, its
+    stride of the evaluation sets."""
     return DataLoader(dataset, batch_size=cfg.batch_size,
                       shuffle=(mode == 'train'),
                       num_workers=min(cfg.num_workers, 4),
-                      drop_last=(mode == 'train'), seed=seed)
+                      drop_last=(mode == 'train'), seed=seed,
+                      rank=rank(), world_size=world_size())
 
 
 def batch_to_device(batch, device):
@@ -92,10 +108,15 @@ def batch_to_device(batch, device):
 
 class Experiment:
     def __init__(self, config, resume_ckpt=None, load_datasets=True, device=None):
-        if (config.arch.dp_devices or 1) > 1:
-            raise NotImplementedError(
-                f'arch.dp_devices {config.arch.dp_devices}: data-parallel '
-                'training waits for ROADMAP Queue 1 item 19')
+        self.world_size = world_size()
+        n_dp = config.arch.dp_devices or self.world_size
+        if n_dp != self.world_size:
+            raise ValueError(
+                f'arch.dp_devices {config.arch.dp_devices} asks for {n_dp} '
+                f'data-parallel processes, and {self.world_size} run: launch one '
+                f'process per device with torchrun --nproc_per_node {n_dp} -m '
+                'mindtheedge_tpu_torch.cli.train_edges <config>, or set '
+                'arch.dp_devices to 0')
         self.config = config
         self.device = resolve_device(device)
         set_random_seed(config.arch.seed)
@@ -124,6 +145,12 @@ class Experiment:
             self.train_loader = loader('train')
             self.val_loader = loader('validation')
             self.test_loader = loader('test')
+        train = self.train_loader
+        if self.world_size > 1 and train is not None \
+                and len(train.dataset) < train.batch_size * self.world_size:
+            raise ValueError(
+                f'{len(train.dataset)} training samples cannot fill one global '
+                f'batch of {train.batch_size} x {self.world_size} processes')
         self.state = None
         self.resume_ckpt = resume_ckpt
 
@@ -205,8 +232,14 @@ class Experiment:
                 for name, val in zip(EDGE_METRIC_NAMES, np.mean(per_sample, axis=0)):
                     sums[f'edges/{name}'] = sums.get(f'edges/{name}', 0.0) + float(val)
             count += 1
+        if self.world_size > 1:
+            # the sums and counts of the rank-strided shards (experiment.py:369-376)
+            keys = sorted(sums)
+            *totals, count = reduce_value(
+                np.array([sums[k] for k in keys] + [count], np.float64), average=False)
+            sums = dict(zip(keys, totals))
         means = {k: v / max(count, 1) for k, v in sums.items()}
-        if means:
+        if means and is_main_process():
             print('Validation: ' +
                   ' '.join(f'{k}={v:.4f}' for k, v in sorted(means.items())))
         return means
@@ -225,12 +258,20 @@ class Experiment:
             filepath=cfg.checkpoint.filepath or 'checkpoints',
             monitor=cfg.checkpoint.monitor, save_top_k=cfg.checkpoint.save_top_k,
             mode=cfg.checkpoint.mode, save_freq=cfg.checkpoint.save_freq,
-            s3_path=cfg.checkpoint.s3_path,
+            s3_path=cfg.checkpoint.s3_path, s3_frequency=cfg.checkpoint.s3_frequency,
             yaml_path=cfg.config or cfg.checkpoint.yaml_path)
         logger = WandbLogger(dir=cfg.checkpoint.filepath or '.',
                              **{k: v for k, v in cfg.wandb.items()
                                 if k not in ('dir', 'url')})
-        train_step = make_train_step(self.task)
+        logger.log_config(cfg)
+        if self.world_size > 1:
+            train_step = make_dp_train_step(self.task)
+            if is_main_process():
+                print(f'Data-parallel over {self.world_size} processes: global batch '
+                      f'{self.train_loader.batch_size * self.world_size} '
+                      f'({self.train_loader.batch_size}/process)')
+        else:
+            train_step = make_train_step(self.task)
         timer = StepTimer()
         max_epochs = cfg.arch.max_epochs
         try:
@@ -253,10 +294,12 @@ class Experiment:
                 self.state.scheduler.step()
                 logger.log_metrics({f'train/{k}': v for k, v in means.items()},
                                    global_step=self.state.step)
-                ips = n_batches * self.train_loader.batch_size / max(time.time() - t0, 1e-9)
-                print(f'Epoch {epoch}: ' +
-                      ' '.join(f'{k}={v:.4f}' for k, v in sorted(means.items())) +
-                      f' ({ips:.2f} img/s)')
+                ips = (n_batches * self.train_loader.batch_size * self.world_size
+                       / max(time.time() - t0, 1e-9))
+                if is_main_process():
+                    print(f'Epoch {epoch}: ' +
+                          ' '.join(f'{k}={v:.4f}' for k, v in sorted(means.items())) +
+                          f' ({ips:.2f} img/s)')
                 val_metrics = self.validate() if self.val_loader is not None else {}
                 if val_metrics:
                     logger.log_metrics({f'val/{k}': v for k, v in val_metrics.items()},
@@ -266,6 +309,6 @@ class Experiment:
         finally:
             logger.finish()
         summary = timer.summary()
-        if summary:
+        if summary and is_main_process():
             print('Step timing: ' + ' '.join(f'{k}={v:.4g}' for k, v in summary.items()))
         return self.state

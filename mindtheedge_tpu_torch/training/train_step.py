@@ -28,7 +28,7 @@ def create_train_state(config, net, epoch=0, step=0, pose_net=None):
     return state
 
 
-def make_train_step(task):
+def make_train_step(task, grad_transform=None):
     """``train_step(state, batch, generator, progress=0.0) -> metrics``.
 
     ``metrics`` holds the task's loss terms and ``grad_norm``, the global L2
@@ -39,6 +39,12 @@ def make_train_step(task):
     beside the graph of an RGBD pass that no loss of the task reads.  A
     loss that reaches no parameter (``SfmModel``) has no backward; the
     gradients stay zero.
+
+    ``grad_transform``, where given, receives the list of every parameter's
+    gradient after the backward and changes them in place, before their
+    norm and the update (``train_step.py:37-38``): the seam where the
+    data-parallel step averages them over the processes
+    (``parallel/mesh.make_dp_train_step``).
     """
     def train_step(state, batch, generator, progress=0.0):
         for net in state.networks():
@@ -46,8 +52,10 @@ def make_train_step(task):
         loss, metrics = task.train_loss(batch, generator, progress)
         if loss.requires_grad:
             loss.backward()
-        metrics['grad_norm'] = torch.nn.utils.get_total_norm(
-            [p.grad for p in state.parameters()])
+        grads = [p.grad for p in state.parameters()]
+        if grad_transform is not None:
+            grad_transform(grads)
+        metrics['grad_norm'] = torch.nn.utils.get_total_norm(grads)
         state.optimizer.step()
         state.step += 1
         return metrics

@@ -1,13 +1,30 @@
-"""Metric averaging on the host: counterpart of the host helpers of
-``mindtheedge_tpu/utils/reduce.py`` (reference ``utils/reduce.py``).
-
-``reduce_value``, the cross-process reduction, comes with data-parallel
-training (ROADMAP item 19).
+"""Metric reduction across processes and averaging on the host:
+counterpart of ``mindtheedge_tpu/utils/reduce.py`` (reference
+``utils/reduce.py``).
 """
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
+from mindtheedge_tpu_torch.parallel.distributed import world_size
 from mindtheedge_tpu_torch.utils.depth import DEPTH_METRIC_NAMES
+
+
+def reduce_value(value, average=True):
+    """The sum (or, with ``average``, the mean) of ``value`` over the
+    processes, a numpy scalar or array (``reduce.py:14-21``, reference
+    ``horovod.py:32-50``); ``value`` unchanged in a single process.  The
+    all-reduce runs on the current CUDA device under NCCL, else on the CPU."""
+    n = world_size()
+    if n == 1:
+        return value
+    device = (torch.device('cuda', torch.cuda.current_device())
+              if dist.get_backend() == 'nccl' else torch.device('cpu'))
+    total = torch.tensor(np.asarray(value), device=device)     # a copy: value stays
+    dist.all_reduce(total)
+    out = (total / n if average else total).cpu().numpy()
+    return out[()] if out.ndim == 0 else out
 
 
 def all_reduce_metrics(metrics_list, dataset_lengths, name='depth'):

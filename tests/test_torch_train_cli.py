@@ -354,20 +354,20 @@ def test_shipped_yaml_trains_in_bf16_and_resumes_in_fp32(runs, tmp_path):
 
 
 @pytest.mark.parametrize('key,value,item', [
-    ('arch.dp_devices', 2, 'item 19'),
-    ('checkpoint.s3_path', 's3://bucket/run', 'item 25'),
-    ('wandb.dry_run', False, 'item 25'),
+    ('arch.dp_devices', 2, 'torchrun --nproc_per_node 2'),
 ])
 def test_unported_options_raise_before_work(runs, tmp_path, key, value, item):
-    """Each option the port does not carry raises naming its ROADMAP item
-    before any training step; the checkpoint directory gets no checkpoint."""
+    """An option this process cannot carry raises before any training
+    step, naming what to do (``arch.dp_devices`` 2 without a process group
+    of 2: launch under torchrun); the checkpoint directory gets no
+    checkpoint."""
     cfg = config.get_cfg_defaults()
     cfg.merge_from_other_cfg(train_config(runs['split'], str(tmp_path / 'ck'),
                                           runs['init']).to_dict())
     cfg.merge_from_list([key, value])
     path = str(tmp_path / 'bad.yaml')
     cfg.save_yaml(path)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=item):
         train_edges.main([path], device='cpu')
     assert not (tmp_path / 'ck').exists() or not ckpts(str(tmp_path / 'ck'))
 

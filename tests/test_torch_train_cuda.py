@@ -429,15 +429,16 @@ def write_kitti_tree(root, n_frames=6, h=8, w=16, seed=0, no_gt=(4,)):
 BAND = 2.0     # bf16 vs bf16 may differ by this times bf16 vs fp32
 
 
-def step_outcome(cfg, batch, device, seed=7):
-    """One ``train_step`` of the task of ``cfg`` from its seeded weights,
-    the generator seeded with ``seed`` -> (loss, gradients, the depth
-    network's state dict after the step, the generator's state)."""
+def step_outcome(cfg, batch, device, seed=7, make_step=make_train_step):
+    """One step made by ``make_step`` (``train_step`` by default) of the
+    task of ``cfg`` from its seeded weights, the generator seeded with
+    ``seed`` -> (loss, gradients, the depth network's state dict after the
+    step, the generator's state)."""
     task = build_task(cfg, device=device)
     state = create_train_state(cfg, task.depth_net)
     to_dev = lambda v: [x.to(device) for x in v] if isinstance(v, list) else v.to(device)
     gen = torch.Generator(device).manual_seed(seed)
-    metrics = make_train_step(task)(state, {k: to_dev(v) for k, v in batch.items()}, gen)
+    metrics = make_step(task)(state, {k: to_dev(v) for k, v in batch.items()}, gen)
     return (float(metrics['loss']),
             {n: p.grad.detach().cpu().clone() for n, p in task.depth_net.named_parameters()},
             {k: v.cpu().clone() for k, v in task.depth_net.state_dict().items()},
@@ -497,31 +498,38 @@ def remat_config(remat, channels=(16,) * 6, task='SemiSupEdgeCompletionModel'):
     return cfg
 
 
-def remat_vs_plain(dev, configs, batch):
-    """One step of each config of ``configs`` ({remat: config}, False among
-    them) from the same weights, batch and generator seed on ``dev``; the
-    config without remat twice, for the run-to-run noise of the card's
-    reductions -> {remat: gaps against the step without remat}, the bound,
-    the noise.  Each holds the same draws (generator state,
-    ``num_batches_tracked``) and its loss, gradients and running statistics
-    within the bound: 4 times the noise's worst, and at least
+def variants_vs_plain(dev, cfg, variants, batch):
+    """One plain ``train_step`` of ``cfg`` and one step of each variant
+    (``{label: (config, make_step)}``) from the same weights, batch and
+    generator seed on ``dev``; the plain step twice, for the run-to-run
+    noise of the card's reductions -> {label: gaps against the plain
+    step}, the bound, the noise.  Each holds the same draws (generator
+    state, ``num_batches_tracked``) and its loss, gradients and running
+    statistics within the bound: 4 times the noise's worst, and at least
     ``GRAD_RTOL``, the gradient tolerance of the card-vs-CPU step.  (One
     pair of runs gauges the noise loosely: the step without remat measured
     3.3e-6 against itself, then 3.2e-5 against the remat step, on one
     card; on the CPU the two are bit-equal, tests/test_torch_remat.py.)"""
-    plain = step_outcome(configs[False], batch, dev)
-    noise = outcome_gaps(step_outcome(configs[False], batch, dev), plain)
+    plain = step_outcome(cfg, batch, dev)
+    noise = outcome_gaps(step_outcome(cfg, batch, dev), plain)
     bound = max(4 * max(noise['loss'], *noise['grad'], *noise['stats']), GRAD_RTOL)
     gaps = {}
-    for remat, cfg in configs.items():
-        if remat is False:
-            continue
-        gaps[remat] = g = outcome_gaps(step_outcome(cfg, batch, dev), plain)
+    for label, (variant, make_step) in variants.items():
+        gaps[label] = g = outcome_gaps(step_outcome(variant, batch, dev, make_step=make_step),
+                                       plain)
         assert g['counts'] and g['generator'], \
-            f'remat {remat!r}: other dropout draws or statistics counts'
+            f'{label!r}: other dropout draws or statistics counts'
         worst = max(g['loss'], *g['grad'], *g['stats'])
-        assert worst <= bound, f'remat {remat!r}: {g} beyond {bound:.3e}'
+        assert worst <= bound, f'{label!r}: {g} beyond {bound:.3e}'
     return gaps, bound, noise
+
+
+def remat_vs_plain(dev, configs, batch):
+    """:func:`variants_vs_plain` of ``configs`` ({remat: config}, False,
+    the plain step, among them)."""
+    return variants_vs_plain(dev, configs[False],
+                             {r: (c, make_train_step) for r, c in configs.items()
+                              if r is not False}, batch)
 
 
 @pytest.fixture
