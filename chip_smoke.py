@@ -159,6 +159,31 @@ Run from the repository root, on a machine with one CUDA card and nvcc.
       of phase 9's files (both fresh processes, same weights; cuDNN's
       autotuner may pick other algorithms, so not byte-equal).
 
+12. Spatial sharding with halo exchange (``parallel/spatial.py``; no kernel
+   on these paths: the NMS kernel must launch 0 times).
+   a. NCCL at world size 1: phase 4's network and last request (SLIM,
+      384x1280, batch 4, 95 %-sparse LiDAR) through ``make_spatial_infer``
+      with a space of one (zero-pad exchanges, the gathered GroupNorm
+      statistics) against ``serve.build``'s unsharded forward: 4 scales
+      within rtol 1e-4, atol 1e-5; ms of each, by CUDA events, in turn.
+   b. Two spawned ranks over gloo sharing the card (NCCL refuses two ranks
+      on one GPU), H over 2 (``tests/test_torch_spatial_cuda.card_pair_job``;
+      its card test holds the same at [2,128,96] and [2,128,64]): 12a's
+      full-width forward (rtol 1e-4, atol 1e-5), its ms a rank and the
+      collectives of one forward, one halo exchange alone; then one
+      ``make_spatial_train_step`` step of 7b's config with ``flip_lr_prob``
+      0 (batch 3, 384x1280, fp32) against the plain card step from the same
+      weights, batch and generator (loss rtol 1e-5, every gradient within
+      1e-4 of its tensor's largest, running statistics rtol 1e-4), and 3
+      timed steps: ms per step and peak memory per rank.
+   c. ``cli.infer_edges --spatial 2 --wire f32`` in the same two ranks
+      (``main(argv, device='cuda:0')``) on 2 synthetic frames at DDAD-DE's
+      1216x1936 with ``configs/eval_ddad_de.yaml``'s model block, its
+      split and output folder replaced and the frames resized to 1216x1920
+      (5 pack levels need a multiple of 32; 1936 is not): every depth map
+      within rtol 1e-4, atol 1e-5 of the unsharded CLI's on the card;
+      wall seconds of both.
+
 Prints one line per phase, each phase's wall time, then the card's name
 and power limit, a JSON line of the kernels, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failure exits nonzero; without a CUDA
@@ -186,6 +211,7 @@ from mindtheedge_tpu_torch.models.packnet import SLIM_CHANNELS, to_train_device
 from mindtheedge_tpu_torch.models.tasks import build_depth_net, build_task
 from mindtheedge_tpu_torch.ops import edge_ops, wire
 from mindtheedge_tpu_torch.ops.cuda import build, nms_kernel
+from mindtheedge_tpu_torch.parallel import spatial
 from mindtheedge_tpu_torch.parallel.mesh import all_reduce_mean, make_dp_train_step
 from mindtheedge_tpu_torch.training.checkpoint import load_checkpoint
 from mindtheedge_tpu_torch.training.experiment import Experiment
@@ -193,12 +219,13 @@ from mindtheedge_tpu_torch.training.train_step import create_train_state, make_t
 from tests.test_torch_annotate_cuda import (
     annotate_card_vs_cpu, random_frames, task_config)
 from tests.test_torch_dp_cuda import dp_vs_plain, oracle_gaps, oracle_job, start_ranks
+from tests.test_torch_spatial_cuda import card_pair_job, cli_job, forward_gap, step_gaps
 from tests.test_torch_train_cuda import write_kitti_tree
 from tests.test_torch_nms_kernel import dyadic_patch, gaussian_blur, misaligned
 from tests.test_torch_train_cuda import (
     BAND, GRAD_RTOL, PHOTOMETRIC_BOUND, TASKS, bf16_card_vs_cpu, kitti_intrinsics,
     photometric_card_vs_cpu, photometric_gap_causes, remat_config, remat_vs_plain,
-    synthetic_batch, train_step_card_vs_cpu)
+    step_outcome, synthetic_batch, train_step_card_vs_cpu)
 
 KERNELS = ('nms_kernel',)
 B, H, W = 4, 384, 1280
@@ -228,6 +255,12 @@ DP_DIR = 'build/dp_smoke'
 # against 10e's remat runs and against 11a, NVIDIA H100 80GB HBM3, 700 W)
 RUN_RTOL = 1e-2
 DP_INFER_FRAMES = 8                     # phase 11d: the first frames of phase 9's split
+SPATIAL_DIR = 'build/spatial_smoke'
+SPATIAL_ITERS = 5                       # 12a: timed forwards of each kind, in turn
+DDAD_CONFIG = 'configs/eval_ddad_de.yaml'
+DDAD_H, DDAD_W = 1216, 1936             # DDAD-DE's frames
+DDAD_SHAPE = (1216, 1920)               # rounded down to a multiple of 32
+DDAD_FRAMES = 2
 
 
 def check(ok, what):
@@ -1393,6 +1426,141 @@ def phase_dp_infer_cli():
     return launches
 
 
+def phase_spatial_nccl(dev):
+    """12a: the sharded code path with a space of one over NCCL at world 1
+    against the unsharded forward -> (the NMS kernel's launches, the
+    request, the unsharded inverse depths on the CPU)."""
+    os.makedirs(SPATIAL_DIR, exist_ok=True)
+    store = os.path.abspath(os.path.join(SPATIAL_DIR, 'nccl_store'))
+    if os.path.exists(store):
+        os.remove(store)
+    dist.init_process_group('nccl', init_method=f'file://{store}', rank=0, world_size=1)
+    nms_kernel.launches = 0
+    try:
+        rgb_u8, lidar = serve_requests(1)[0]
+        rgb, lidar = rgb_u8.to(dev).float() / 255.0, lidar.to(dev)
+        plain = serve.build(SLIM_CHANNELS, device=dev, seed=0)
+        space = spatial.Space(1)
+        infer = spatial.make_spatial_infer(serve.build(SLIM_CHANNELS, device=dev, seed=0),
+                                           space, with_depth=True)
+        with torch.no_grad():
+            want = plain(rgb, lidar)['inv_depths']
+            got = infer(rgb, lidar)         # the first call autotunes its shapes
+            space.counts = dict.fromkeys(space.counts, 0)
+            got = infer(rgb, lidar)
+            counts = dict(space.counts)
+            err = forward_gap(got, want)
+            runs = {'plain': [], 'sharded': []}
+            for kind in ('plain', 'sharded', 'sharded', 'plain'):
+                fn = (lambda i: plain(rgb, lidar)) if kind == 'plain' else \
+                    (lambda i: infer(rgb, lidar))
+                runs[kind].append(sync_ms(fn, SPATIAL_ITERS))
+    finally:
+        dist.destroy_process_group()
+    print(f'phase 12a sharded path with a space of one (NCCL, world 1), {H}x{W} b{B} fp32 '
+          f'LiDAR: 4 scales within rtol 1e-4 atol 1e-5 of serve.build\'s forward (max |err| '
+          f'{err:.3e}); one forward runs {counts["exchange"]} halo exchanges (zero pads here) '
+          f'and {counts["statistics"]} reductions (none at one block); ms by CUDA events over '
+          f'{SPATIAL_ITERS} forwards, in turn plain / sharded / sharded / plain: '
+          + ' / '.join(f'{m:.3f}' for m in (runs['plain'][0], *runs['sharded'], runs['plain'][1]))
+          + f' (sharded / plain {np.mean(runs["sharded"]) / np.mean(runs["plain"]):.3f}); '
+          f'nms launches {nms_kernel.launches}')
+    return nms_kernel.launches, {'rgb': rgb.cpu(), 'lidar': lidar.cpu()}, \
+        [d.cpu() for d in want]
+
+
+def ddad_argv(name, spatial_arg):
+    """``cli.infer_edges`` argv of :data:`DDAD_CONFIG` on the synthetic
+    DDAD split in :data:`SPATIAL_DIR`, its output in ``name``."""
+    import yaml
+    with open(DDAD_CONFIG) as f:
+        cfg = yaml.safe_load(f)
+    cfg['datasets']['test']['split'] = [os.path.join(SPATIAL_DIR, 'ddad', 'split.txt')]
+    cfg['datasets']['augmentation']['image_shape'] = list(DDAD_SHAPE)
+    cfg['save']['folder'] = os.path.join(SPATIAL_DIR, name)
+    cfg['analysis']['run_heavy_edge_metrics'] = False
+    path = os.path.join(SPATIAL_DIR, f'{name}.yaml')
+    with open(path, 'w') as f:
+        yaml.safe_dump(cfg, f)
+    return ['--config', path, '--batch', str(DDAD_FRAMES), '--spatial', spatial_arg,
+            '--wire', 'f32']
+
+
+def phase_spatial_gloo(dev, request, want):
+    """12b and 12c: two spawned ranks over gloo sharing the card, their
+    oracles computed first on the card alone -> {'12b': NMS launches,
+    '12c': NMS launches}."""
+    import shutil
+    for name in ('ddad', 'ddad_plain', 'ddad_spatial'):
+        shutil.rmtree(os.path.join(SPATIAL_DIR, name), ignore_errors=True)
+    cfg = train_config()
+    cfg.model.loss.flip_lr_prob = 0.0
+    config = os.path.join(SPATIAL_DIR, 'train_fp32_flip0.yaml')
+    cfg.save_yaml(config)
+    batch = full_width_batch(dev)
+    paths = {k: os.path.join(SPATIAL_DIR, f'{k}.pt') for k in ('batch', 'request')}
+    torch.save({k: v.cpu() for k, v in batch.items()}, paths['batch'])
+    torch.save(request, paths['request'])
+    write_split(os.path.join(SPATIAL_DIR, 'ddad'), DDAD_FRAMES, DDAD_H, DDAD_W, seed=12)
+
+    # the oracles, on the card alone before the ranks start
+    nms_kernel.launches = 0
+    plain_step = step_outcome(cfg, batch, dev)
+    t0 = time.perf_counter()
+    infer_edges.main(ddad_argv('ddad_plain', '0'), device=dev)
+    plain_cli_s = time.perf_counter() - t0
+    plain_launches = nms_kernel.launches
+    del batch
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = start_ranks([(card_pair_job, {'full_config': config, 'full_batch': paths['batch'],
+                                          'full_forward': paths['request']}),
+                         (cli_job, {'argv': ddad_argv('ddad_spatial', '2'),
+                                    'device': 'cuda:0'})],
+                        2, os.path.join(SPATIAL_DIR, 'gloo'),
+                        threads=max(os.cpu_count() // 2, 1))
+    pair, cli = ranks.result(0), ranks.result(1)
+    ranks_s = time.perf_counter() - t0
+    for r, res in enumerate(pair):
+        full_fwd = forward_gap(res['full_forward'], want)
+        full = step_gaps(res['full_step'], plain_step)
+        step = res['full_step']
+        check(all(np.isfinite(step['losses'])), f'12b rank {r} losses {step["losses"]}')
+        print(f'phase 12b rank {r} of 2 over gloo on one card, H over 2, full width {H}x{W} b{B} forward against the unsharded '
+              f'card forward: max |err| {full_fwd:.3e}; {res["forward_ms"]["forward"]:.3f} ms '
+              f'a forward by CUDA events (both ranks on one card, gloo through the host); '
+              f'one forward runs {res["forward_counts"]["exchange"]} halo exchanges, '
+              f'{res["forward_counts"]["statistics"]} statistic reductions; one halo '
+              f'exchange of [4,32,192,1280] by 3 rows alone '
+              f'{res["forward_ms"]["exchange_32ch_p3"]:.3f} ms (host clock)')
+        print(f'phase 12b rank {r}, 7b\'s config (flip 0) {H}x{W} b{TRAIN_B} fp32: one spatial '
+              f'step against the plain card step: loss {full["loss"]:.3e} (rtol 1e-5), '
+              f'gradients {full["grad"]:.3e} of their largest (bound {GRAD_RTOL:g}), running '
+              f'statistics at {full["stats"]:.3f} of their tolerance (rtol 1e-4, atol 1e-6); {len(step["ms"])} steps after it: '
+              + ', '.join(f'{m:.3f}' for m in step['ms'])
+              + f' ms by CUDA events, peak {step["peak"] / 2**30:.3f} GiB a rank (7b: one '
+              f'process, the whole frame); losses ' + ', '.join(f'{v:.6f}' for v in step['losses']))
+    worst = 0.0
+    for i in range(DDAD_FRAMES):
+        name = f'{i:08d}_regular.npy'
+        got = np.load(os.path.join(SPATIAL_DIR, 'ddad_spatial', name))
+        plain_map = np.load(os.path.join(SPATIAL_DIR, 'ddad_plain', name))
+        check(got.shape == DDAD_SHAPE, f'12c depth map {got.shape}')
+        np.testing.assert_allclose(got, plain_map, rtol=1e-4, atol=1e-5, err_msg=name)
+        worst = max(worst, float(np.abs(got - plain_map).max()))
+    print(f'phase 12c infer_edges --spatial 2 --wire f32 on 2 gloo ranks sharing the card, '
+          f'{DDAD_FRAMES} frames {DDAD_H}x{DDAD_W} resized to {DDAD_SHAPE[0]}x{DDAD_SHAPE[1]} '
+          f'({DDAD_CONFIG}\'s model): depth within rtol 1e-4 atol 1e-5 of the unsharded CLI '
+          f'on the card (max |err| {worst:.3e} m); wall '
+          + ', '.join(f'rank {r} {c["seconds"]:.1f} s' for r, c in enumerate(cli))
+          + f', the unsharded CLI {plain_cli_s:.1f} s (one process); the two ranks\' '
+          f'phase-12b and 12c jobs {ranks_s:.1f} s from spawn to end; nms launches '
+          + ', '.join(str(c['nms_launches']) for c in cli) + f' (unsharded {plain_launches})')
+    return {'12b': sum(res['nms_launches'] for res in pair),
+            '12c': sum(c['nms_launches'] for c in cli)}
+
+
 def card_line():
     out = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
@@ -1463,6 +1631,12 @@ def main():
     for name, n in launches11.items():
         check(n == 0, f'NMS kernel launched {n} times in phase {name}')
     print(f'phase 11 wall time {time.perf_counter() - t11:.1f} s')
+    t12 = time.perf_counter()
+    launches12a, request, want12 = timed('12a', phase_spatial_nccl, dev)
+    launches12 = dict(timed('12b-c', phase_spatial_gloo, dev, request, want12), **{'12a': launches12a})
+    for name, n in launches12.items():
+        check(n == 0, f'NMS kernel launched {n} times in phase {name}')
+    print(f'phase 12 wall time {time.perf_counter() - t12:.1f} s')
     print('phase wall times (s): ' + ', '.join(f'{k} {v:.1f}' for k, v in walls.items()))
     print(f'chip_smoke wall time {time.perf_counter() - t0:.1f} s')
     card = card_line()
@@ -1473,7 +1647,7 @@ def main():
         'replaces': 'mindtheedge_tpu/ops/pallas/nms_kernel.py:111',
         'launches': (launches4 + launches5 + launches6 + launches7 + launches8 + launches9
                      + launches10a + launches10b + launches10c + sum(launches10.values())
-                     + sum(launches11.values())),
+                     + sum(launches11.values()) + sum(launches12.values())),
         'launches_by_path': {'serve': launches4, 'annotate': launches5,
                              'infer': launches6, 'train': launches7,
                              'train_dee_completion_selfsup': launches8,
@@ -1483,7 +1657,10 @@ def main():
                              'train_remat': launches10['10e'],
                              'train_dp_nccl': launches11['11a'],
                              'train_dp_cli': launches11['11c'],
-                             'infer_dp_cli': launches11['11d']},
+                             'infer_dp_cli': launches11['11d'],
+                             'spatial_infer_nccl1': launches12['12a'],
+                             'spatial_train_gloo2': launches12['12b'],
+                             'spatial_infer_cli_gloo2': launches12['12c']},
         'max_abs_err': max(err2, err4, err5, err10),
         'mismatched_px': bad2 + bad4 + bad5 + bad10,
         'checked_px': px2 + prob.numel() + px5 + prob10.numel(),

@@ -7,6 +7,8 @@ Counterpart of ``mindtheedge_tpu/cli/infer_edges.py``::
         [--batch 4] [--wire {u16,u8,f32}]
     torchrun --nproc_per_node N -m mindtheedge_tpu_torch.cli.infer_edges \\
         --config <yaml> --batch 4 [--dp N]
+    torchrun --nproc_per_node D*N*M -m mindtheedge_tpu_torch.cli.infer_edges \\
+        --config <yaml> --batch 4 --spatial {N | -1 | NxM} [--dp D]
 
 Outputs, as there (reference ``infer_edges.py:349-366``): per image
 ``{idx:08d}_regular.npy`` (metric depth), ``_regular.png`` (depth/max*255),
@@ -31,9 +33,19 @@ global batch and writes their files under their split index; after a
 barrier, rank 0 writes ``pred_list.txt`` in split order and runs the
 metrics.  ``--dp N`` without a group of N processes exits before any work.
 
-Not ported here: spatial sharding (``--spatial``, ROADMAP Slice E, item
-20), which exits before any work.  The card is used unless ``main`` is
-given ``device='cpu'``.
+``--spatial`` (``infer_edges.py:227-305``) cuts every frame into N row
+blocks (``NxM``: N rows by M columns; ``-1``: the most rows
+``parallel/spatial.max_space_devices`` allows over the processes), one
+block a process, halo-exchanged (``parallel/spatial.py``); with ``--dp
+D`` the launch holds D x N x M processes, data-major.  A size or grid
+that does not keep every block even through the 5 pack levels exits with
+the legal ones, and a launch of another size exits naming the one it
+needs, both before any work.  Each process reads its data replica's
+frames, feeds its block, and gathers the depth map over the replica; the
+replica's first block writes.  The LiDAR goes up dense whatever the
+``--wire``, and every frame must have the first one's shape
+(``infer_edges.py:336-337, 350-360``).  The card is used unless ``main``
+is given ``device='cpu'``.
 """
 
 import argparse
@@ -46,6 +58,7 @@ import torch
 from mindtheedge_tpu_torch.config import get_cfg_defaults, parse_test_file, prepare_config
 from mindtheedge_tpu_torch.models.tasks import build_task
 from mindtheedge_tpu_torch.ops import wire
+from mindtheedge_tpu_torch.parallel import spatial
 from mindtheedge_tpu_torch.parallel.distributed import (
     barrier, is_main_process, maybe_initialize_distributed, rank, world_size)
 from mindtheedge_tpu_torch.utils.colormap import spectral_u8
@@ -65,13 +78,14 @@ def parse_args(argv=None):
     parser.add_argument('--batch', type=int, default=4,
                         help='Inference batch size (device batching)')
     parser.add_argument('--spatial', type=str, default='0',
-                        help='Spatial sharding over devices: not ported '
-                             '(ROADMAP Slice E, item 20); only 0 / 1 are accepted')
+                        help='Spatial sharding with halo exchange: N = H over '
+                             'N processes, NxM = an H x W grid, -1 = the '
+                             'largest legal H split; 0/1 = off')
     parser.add_argument('--dp', type=int, default=-1,
-                        help='Data-parallel processes, one a device, under '
-                             'torchrun --nproc_per_node N: each takes its '
-                             'share of every --batch.  -1 = the number of '
-                             'processes, 0/1 = one process')
+                        help='Data-parallel replicas, one a device (or one a '
+                             'spatial grid), under torchrun --nproc_per_node: '
+                             'each takes its share of every --batch.  -1 = the '
+                             'processes the grid leaves, 0/1 = one replica')
     parser.add_argument('--wire', choices=('u16', 'u8', 'f32'), default='u16',
                         help='Depth downlink format: u16 = KITTI 1/256 m '
                              'storage format; u8 = the edge-AUC protocol\'s '
@@ -81,21 +95,48 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def _dp_processes(args):
-    """The data-parallel process count ``--dp`` asks for; exits before any
-    work where it is not the process group's, or where ``--spatial`` asks
-    for what is not ported."""
-    if (args.spatial or '0').strip().lower() not in ('0', '1', '1x1'):
-        raise SystemExit('--spatial (spatial sharding with halo exchange) is not '
-                         'ported yet: ROADMAP Slice E, item 20')
+def _space_grid(args, height, width):
+    """The (n_h, n_w) grid ``--spatial`` asks for on frames of ``height`` x
+    ``width``; exits with the legal ones for an illegal size or grid
+    (``infer_edges.py:233-256``)."""
+    arg = (args.spatial or '0').strip().lower()
+    if arg in ('0', '1', '1x1'):
+        return 1, 1
+    if 'x' in arg:
+        n_h, n_w = (int(t) for t in arg.split('x'))
+        grids = spatial.legal_space_grids(height, width)
+        if (n_h, n_w) not in grids:
+            raise SystemExit(
+                f'--spatial {n_h}x{n_w} is illegal for {height}x{width}: each '
+                'per-shard extent must divide its dim and stay even through 5 '
+                f'pack levels. Legal grids: {sorted(grids)}.')
+        return n_h, n_w
+    n = int(arg)
+    if n < 0:
+        limit = world_size() // max(args.dp, 1)
+        return spatial.max_space_devices(height, limit=max(limit, 1)), 1
+    legal = spatial.legal_space_sizes(height)
+    if n not in legal:
+        raise SystemExit(
+            f'--spatial {n} is illegal for image height {height}: the per-shard '
+            'height must divide H and stay even through 5 pack levels. Legal '
+            f'mesh sizes for H={height}: {legal} (2-D grids: --spatial NxM).')
+    return n, 1
+
+
+def _dp_processes(args, n_space=1):
+    """The data-parallel replica count ``--dp`` asks for, each of
+    ``n_space`` processes; exits before any work where the replicas' and
+    the grid's processes are not the process group's."""
     world = world_size()
-    n_dp = world if args.dp < 0 else max(args.dp, 1)
+    n_dp = max(world // n_space, 1) if args.dp < 0 else max(args.dp, 1)
     if args.batch % n_dp:
         raise SystemExit(f'--dp {n_dp} must divide --batch {args.batch}')
-    if n_dp != world:
+    if n_dp * n_space != world:
+        what = f'--dp {n_dp}' + (f' x --spatial {n_space}' if n_space > 1 else '')
         raise SystemExit(
-            f'--dp {n_dp} needs {n_dp} processes, one a device, and {world} '
-            f'run: launch with torchrun --nproc_per_node {n_dp} -m '
+            f'{what} needs {n_dp * n_space} processes, one a device, and {world} '
+            f'run: launch with torchrun --nproc_per_node {n_dp * n_space} -m '
             'mindtheedge_tpu_torch.cli.infer_edges')
     return n_dp
 
@@ -166,21 +207,28 @@ def save_depth_outputs(pred_depth, out_base):
 
 
 @torch.no_grad()
-def infer_batch(task, rgb, lidar=None, wire_format='u16'):
+def infer_batch(task, rgb, lidar=None, wire_format='u16', space=None):
     """The device work of one batch (``infer_edges.py:218-225``).
 
     ``rgb`` [B,H,W,3] in [0, 1] on the task's device; ``lidar`` None, a
     dense [B,H,W,1] map in metres, or an (idx [B,cap], val [B,cap] uint16)
     pair from ``wire.encode_lidar_sparse``, scattered to the dense map here.
-    Returns the depth of scale 0 [B,H,W] in ``wire_format``.
+    Returns the depth of scale 0 [B,H,W] in ``wire_format``.  Under
+    ``space`` (``spatial.shard_network`` applied to the task's network)
+    the network runs on this rank's block of the frames, and the depth is
+    gathered over the replica before it is encoded.
     """
     if isinstance(lidar, tuple):
         lidar = wire.decode_lidar_sparse(*lidar, rgb.shape[1], rgb.shape[2])
     batch = {'rgb': rgb}
     if lidar is not None:
         batch['input_depth'] = lidar
-    depth = inv2depth(task.infer(batch)['inv_depths'][0][..., 0])
-    return _ENCODERS[wire_format](depth)
+    if space is not None:
+        batch = {k: spatial.shard_spatial(v, space) for k, v in batch.items()}
+    depth = inv2depth(task.infer(batch)['inv_depths'][0])
+    if space is not None:
+        depth = spatial.gather_spatial(depth, space)
+    return _ENCODERS[wire_format](depth[..., 0])
 
 
 def upload(array, device):
@@ -217,20 +265,34 @@ def main(argv=None, device=None):
     else:
         print(f'WARNING: checkpoint {ckpt_path!r} not found — random init '
               '(smoke/benchmark mode)')
-    n_dp = _dp_processes(args)
-
     image_shape = tuple(cfg.datasets.augmentation.image_shape) or None
-    task = build_task(cfg, device, ckpt)
-    dev = task.device
-
     with open(cfg.datasets.test.split[0]) as f:
         lines = [ln for ln in f.read().splitlines() if ln.strip()]
+    first_shape = None
+    if (args.spatial or '0').strip().lower() not in ('0', '1', '1x1'):
+        first_shape = _read_inputs(lines[0], cfg, image_shape)[0].shape[:2]
+    n_h, n_w = _space_grid(args, *first_shape) if first_shape else (1, 1)
+    n_dp = _dp_processes(args, n_h * n_w)
+
+    task = build_task(cfg, device, ckpt)
+    dev = task.device
+    space, replica, writer = None, rank(), True
+    if n_h * n_w > 1:
+        space = spatial.Space(n_h if n_h > 1 else None, n_w if n_w > 1 else None)
+        spatial.shard_network(task.depth_net, space)
+        replica, writer = space.data, space.h == space.w == 0
+        print(f'Spatial: {n_dp} x {n_h} x {n_w} (data x space x space_w), '
+              f'{first_shape[0]}x{first_shape[1]} halo-exchanged')
+    elif first_shape:
+        print(f'--spatial {args.spatial}: the largest legal split of H={first_shape[0]} '
+              f'over {world_size()} process(es) is 1, so the frames run unsharded')
     os.makedirs(cfg.save.folder, exist_ok=True)
 
     # sparse LiDAR uplink capacity: 12.5 % of pixels (KITTI LiDAR is ~5 %);
-    # a batch with a frame over it goes up dense (infer_edges.py:329-337)
+    # a batch with a frame over it goes up dense (infer_edges.py:329-337);
+    # a spatial run ships it dense
     sparse_cap = None
-    if args.wire in ('u16', 'u8') and image_shape:
+    if args.wire in ('u16', 'u8') and image_shape and space is None:
         sparse_cap = (image_shape[0] * image_shape[1]) // 8
     decode = _DECODERS[args.wire]
 
@@ -245,18 +307,26 @@ def main(argv=None, device=None):
             done.synchronize()
         depth = decode(host).numpy()
         for b, i in enumerate(ids):
-            save_depth_outputs(depth[b], out_base(i))
+            if writer:
+                save_depth_outputs(depth[b], out_base(i))
             counter += 1
 
-    # this rank's frames: the rank-th contiguous share of each global batch
+    # this replica's frames: its contiguous share of each global batch
     share = args.batch // n_dp
-    first = rank() * share
+    first = replica * share
     in_flight = []
     for i in range(0, len(lines), args.batch):
         ids = range(i + first, min(i + first + share, len(lines)))
         if not ids:
             continue
         inputs = [_read_inputs(lines[j], cfg, image_shape) for j in ids]
+        for j, (r, _) in zip(ids, inputs):
+            if space is not None and r.shape[:2] != first_shape:
+                raise SystemExit(
+                    f'--spatial needs a uniform image shape: split line '
+                    f'{lines[j].split(" ")[0]!r} has {r.shape[0]}x{r.shape[1]} but the '
+                    f'grid was sized for {first_shape[0]}x{first_shape[1]}. Set '
+                    'datasets.augmentation.image_shape to resize uniformly.')
         # pad the tail chunk to keep one batch shape
         inputs += [inputs[-1]] * (share - len(inputs))
         rgb = upload(np.stack([r for r, _ in inputs]), dev)
@@ -275,7 +345,7 @@ def main(argv=None, device=None):
                          upload(np.stack([s[1] for s in sparse]), dev))
             else:
                 lidar = upload(np.stack([l for _, l in inputs]), dev)
-        depth = infer_batch(task, rgb, lidar, args.wire)
+        depth = infer_batch(task, rgb, lidar, args.wire, space)
         in_flight.append((start_readback(depth), ids))
         if len(in_flight) > LAG:
             drain(in_flight.pop(0))

@@ -165,6 +165,12 @@ class BaseTask:
                 restore_pose_net(pose, ckpt)
             self.pose_net = to_device(pose, device)
         self.device = device
+        # the seams of the spatially sharded step (parallel/spatial.py,
+        # tasks.py:143-155): ``net_input_transform(rgb, lidar)`` -> the
+        # network's inputs, ``output_hook(out)`` -> the output the losses
+        # read; None leaves both as they are
+        self.net_input_transform = None
+        self.output_hook = None
 
     def run_depth(self, batch, force_flip=False, train=False, generator=None):
         """Depth net with the lr-flip wrapper (``tasks.py:180-244``).
@@ -180,7 +186,9 @@ class BaseTask:
         (the network raises at build for ``input_channels == 4``), so
         ``rgb_edge`` does not reach the network.  The network computes in
         ``compute_dtype`` (:meth:`_depth_forward`); what this returns is
-        fp32.
+        fp32.  ``net_input_transform`` sees the inputs after the flip, and
+        ``output_hook`` the network's outputs before the flip-back: the
+        spatial step slices the frame and gathers the pyramid there.
         """
         self.depth_net.train(train)
         flip = None
@@ -192,8 +200,12 @@ class BaseTask:
         rgb = _maybe_flip(batch['rgb'], flip)
         lidar = batch.get('input_depth')
         lidar = None if lidar is None else _maybe_flip(lidar, flip)
+        if self.net_input_transform is not None:
+            rgb, lidar = self.net_input_transform(rgb, lidar)
         with torch.set_grad_enabled(train):
             out = self._depth_forward(rgb, lidar, generator)
+            if self.output_hook is not None:
+                out = self.output_hook(out)
             for key in ('inv_depths', 'inv_depths_rgbd'):
                 if key in out:
                     out[key] = [_maybe_flip(d.float(), flip) for d in out[key]]

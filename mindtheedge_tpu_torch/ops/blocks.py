@@ -7,6 +7,12 @@ Module and parameter names follow the reference PackNetSAN01 layers
 reads.  The JAX package's TPU layout rewrites (phase packing, W-lane packing,
 pack2d-domain convs, the composed pack-layer kernel) compute the same
 functions and are not ported.
+
+Under spatial sharding (``parallel/spatial.py``) each block's ``space``
+is set by ``spatial.shard_network``: its convs with ``k > 1`` then take a
+halo from the neighbouring blocks and run unpadded in the sharded
+dimensions, and GroupNorm takes its statistics over the whole frame.  With
+``space`` None (the default) every block computes as before.
 """
 
 import torch
@@ -14,6 +20,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from mindtheedge_tpu_torch.ops.packing import pack2d, unpack2d
+from mindtheedge_tpu_torch.parallel import spatial
 
 
 class GroupNorm(nn.GroupNorm):
@@ -23,18 +30,26 @@ class GroupNorm(nn.GroupNorm):
     ``arch.precision: bfloat16``); ``F.group_norm`` accumulates the
     statistics in fp32 for bf16 input and rounds the output once, where the
     JAX package rounds its fp32 scale and shift to bf16 first.  Both stay
-    inside the bf16 band of tests/test_torch_bf16.py.
+    inside the bf16 band of tests/test_torch_bf16.py.  Under ``space``
+    the statistics are the whole frame's (``spatial.group_norm``).
     """
+
+    space = None
 
     def __init__(self, num_channels, num_groups=16, eps=1e-5):
         super().__init__(num_groups, num_channels, eps)
 
     def forward(self, x):
+        if self.space is not None:
+            return spatial.group_norm(x, self.num_groups, self.weight, self.bias,
+                                      self.eps, self.space)
         return F.group_norm(x, self.num_groups, self.weight, self.bias, self.eps)
 
 
 class ConvBlock(nn.Module):
     """Zero pad k//2, conv, GroupNorm(16), ELU (reference ``Conv2D``)."""
+
+    space = None
 
     def __init__(self, in_channels, out_channels, kernel_size, stride=1):
         super().__init__()
@@ -43,7 +58,9 @@ class ConvBlock(nn.Module):
         self.normalize = GroupNorm(out_channels)
 
     def forward(self, x):
-        return F.elu(self.normalize(self.conv_base(x)))
+        conv = self.conv_base
+        return F.elu(self.normalize(spatial.sharded_conv(x, conv.weight, conv.bias, self.space,
+                                                         conv.stride[0])))
 
 
 def dropout_keep(batch, channels, rate, device, generator=None):
@@ -108,13 +125,16 @@ class ResidualBlock(nn.Sequential):
 class InvDepthHead(nn.Module):
     """3x3 conv (zero pad 1), sigmoid / min_depth (``blocks.py:609-611``)."""
 
+    space = None
+
     def __init__(self, in_channels, out_channels=1, min_depth=0.5):
         super().__init__()
         self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
         self.min_depth = min_depth
 
     def forward(self, x):
-        return torch.sigmoid(self.conv1(x)) / self.min_depth
+        y = spatial.sharded_conv(x, self.conv1.weight, self.conv1.bias, self.space)
+        return torch.sigmoid(y) / self.min_depth
 
 
 class Conv3dOverChannels(nn.Conv3d):
@@ -125,12 +145,15 @@ class Conv3dOverChannels(nn.Conv3d):
     on all three axes.
     """
 
+    space = None
+
     def __init__(self, d):
         super().__init__(1, d, 3, padding=1)
 
     def forward(self, x):
         b, depth, h, w = x.shape
-        y = super().forward(x.unsqueeze(1))            # [B,d,D,H,W]
+        y = spatial.sharded_conv(x.unsqueeze(1), self.weight, self.bias,  # [B,d,D,H,W]
+                                 self.space)
         return y.reshape(b, self.out_channels * depth, h, w)
 
 
@@ -138,8 +161,11 @@ class PackLayerConv3d(nn.Module):
     """pack2d(r), conv3d (1 -> d, with bias), ConvBlock back to C channels.
 
     The ConvBlock zero-pads the *biased* conv3d output (``blocks.py:812-816,
-    887-910``).
+    887-910``); under spatial sharding the zeros at the grid's edges do
+    it, and ``pack2d`` checks that the local extents are even.
     """
+
+    space = None
 
     def __init__(self, in_channels, kernel_size, r=2, d=8):
         super().__init__()
@@ -148,7 +174,7 @@ class PackLayerConv3d(nn.Module):
         self.conv = ConvBlock(in_channels * r * r * d, in_channels, kernel_size)
 
     def forward(self, x):
-        return self.conv(self.conv3d(pack2d(x, self.r)))
+        return self.conv(self.conv3d(pack2d(x, self.r, self.space)))
 
 
 class UnpackLayerConv3d(nn.Module):

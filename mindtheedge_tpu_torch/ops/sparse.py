@@ -8,6 +8,11 @@ JAX package does.  Parameter names follow the reference
 (``utils/torch_port.py:32-42``), under
 ``mconvs.{lvl}.layer{n}.{3j}.kernel``; batch norms sit at
 ``layer{n}.{3j+1}.bn`` and ``layer_final.0.bn``.
+
+Under spatial sharding (``parallel/spatial.py``) ``MinkConvBlock`` and
+``MaskedBatchNorm`` carry the ``space`` that ``spatial.shard_network``
+sets: the pool and the convs take halos, and the training statistics are
+summed over the frame's blocks.
 """
 
 import math
@@ -17,9 +22,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from mindtheedge_tpu_torch.ops.remat import recomputing
+from mindtheedge_tpu_torch.parallel import spatial
 
 
-def masked_max_pool_3x3_s2(x, mask):
+def masked_max_pool_3x3_s2(x, mask, space=None):
     """3x3 stride-2 max-pool over active sites (``sparse.py:63-70``).
 
     ``x``: [B,C,H,W]; ``mask``: [B,1,H,W] in {0,1}.  Output site (i,j) is
@@ -31,9 +37,25 @@ def masked_max_pool_3x3_s2(x, mask):
     pool casts float32's minimum to the activation's dtype, which in bf16
     rounds to -inf; the two sentinels give equal maps, since an output site
     with no active input is zeroed either way (tests/test_torch_bf16.py).
+
+    Under ``space`` (``sparse.py:78-100``) the local extents of the
+    sharded dimensions must be even; ``x`` and ``mask`` take their halos
+    apart, so the zero rows at the grid's edges have mask 0 and enter as
+    the minimum, as the global padding does.
     """
     neg = torch.finfo(x.dtype).min
-    pooled = F.max_pool2d(torch.where(mask > 0, x, neg), 3, 2, padding=1)
+    if space is None:
+        pooled = F.max_pool2d(torch.where(mask > 0, x, neg), 3, 2, padding=1)
+    else:
+        pad = [1, 1, 1, 1]          # W then H, as F.pad takes them
+        for dim, _ in space.lines():
+            if x.shape[dim] % 2:
+                raise ValueError(f'the spatial pool needs even local extents, not '
+                                 f'{tuple(x.shape[-2:])}')
+            pad[2 * (-1 - dim):2 * (-1 - dim) + 2] = [0, 0]
+        xh = spatial.halo_exchange(x, 1, space)
+        mh = spatial.halo_exchange(mask, 1, space)
+        pooled = F.max_pool2d(F.pad(torch.where(mh > 0, xh, neg), pad, value=neg), 3, 2)
     new_mask = (F.max_pool2d(mask, 2, 2, ceil_mode=True) > 0).to(x.dtype)
     return torch.where(new_mask > 0, pooled, 0.0), new_mask
 
@@ -54,9 +76,15 @@ class MaskedBatchNorm(nn.Module):
     may round it (a kept difference, ROADMAP Queue 3).  In eval the running
     statistics normalise, cast to the activation's dtype as the JAX package
     casts them.
+
+    Under ``space`` the training statistics cover the whole frame
+    (``sparse.py:220-236``): ``count`` and the sum are summed over the
+    blocks, then the squared deviations from the global mean; the running
+    statistics take the global values, equal on every block.
     """
 
     DECAY = 0.9
+    space = None
 
     def __init__(self, num_features):
         super().__init__()
@@ -66,9 +94,16 @@ class MaskedBatchNorm(nn.Module):
         bn = self.bn
         if self.training:
             xf = x.float()
-            count = torch.clamp(mask.float().sum(), min=1.0)
-            mean = (xf * mask).sum((0, 2, 3)) / count
-            var = ((xf - mean[:, None, None]) ** 2 * mask).sum((0, 2, 3)) / count
+            count, total = mask.float().sum(), (xf * mask).sum((0, 2, 3))
+            if self.space is not None:
+                both = spatial.space_all_reduce(torch.cat([count[None], total]), self.space)
+                count, total = both[0], both[1:]
+            count = torch.clamp(count, min=1.0)
+            mean = total / count
+            sq = ((xf - mean[:, None, None]) ** 2 * mask).sum((0, 2, 3))
+            if self.space is not None:
+                sq = spatial.space_all_reduce(sq, self.space)
+            var = sq / count
             if not recomputing():
                 with torch.no_grad():
                     bn.running_mean.mul_(self.DECAY).add_(mean, alpha=1 - self.DECAY)
@@ -116,6 +151,8 @@ class MinkConvBlock(nn.Module):
     needed between the convs.
     """
 
+    space = None
+
     def __init__(self, in_channels, out_channels, kernel_size):
         super().__init__()
         c, k = out_channels, kernel_size
@@ -131,19 +168,20 @@ class MinkConvBlock(nn.Module):
         self.layer_final = nn.Sequential(MaskedBatchNorm(c), nn.ReLU())
 
     def forward(self, x, mask):
-        x, mask = masked_max_pool_3x3_s2(x, mask)
-        c, p = self.out_channels, self.kernel_size // 2
+        space = self.space
+        x, mask = masked_max_pool_3x3_s2(x, mask, space)
+        c = self.out_channels
         l2, l3 = self.layer2, self.layer3
 
-        def conv(t, mink):
-            return F.conv2d(t, mink.conv_weight(), padding=p)
+        def conv(t, weight):
+            return spatial.sharded_conv(t, weight, None, space)
 
         first = torch.cat([self.layer1[0].conv_weight(), l2[0].conv_weight(),
                            l3[0].conv_weight()], 0)
-        x1, x2, x3 = F.conv2d(x, first, padding=p).split([c, 2 * c, 2 * c], 1)
-        x2 = conv(F.relu(l2[1](x2, mask)), l2[3])
-        x3 = conv(F.relu(l3[1](x3, mask)), l3[3])
-        x3 = conv(F.relu(l3[4](x3, mask)), l3[6])
+        x1, x2, x3 = conv(x, first).split([c, 2 * c, 2 * c], 1)
+        x2 = conv(F.relu(l2[1](x2, mask)), l2[3].conv_weight())
+        x3 = conv(F.relu(l3[1](x3, mask)), l3[3].conv_weight())
+        x3 = conv(F.relu(l3[4](x3, mask)), l3[6].conv_weight())
         return F.relu(self.layer_final[0](x1 + x2 + x3, mask)), mask
 
 

@@ -40,6 +40,10 @@ DDP would need ``find_unused_parameters``; and DDP's
 JAX step averages them after it.  Overlapping the all-reduce with the
 backward is left for later.
 
+``make_spatial_train_step(task, space)`` is the spatially sharded step of
+``mindtheedge_tpu/parallel/spatial.py:210-335``: this step, with the
+depth net on this rank's block of the frame.
+
 The JAX module's ``make_sharded_train_step`` (a global-batch estimator no
 caller uses) is not ported (ROADMAP).
 """
@@ -47,6 +51,7 @@ caller uses) is not ported (ROADMAP).
 import torch
 import torch.distributed as dist
 
+from mindtheedge_tpu_torch.parallel import spatial
 from mindtheedge_tpu_torch.parallel.distributed import world_size
 from mindtheedge_tpu_torch.training.train_step import make_train_step
 
@@ -115,3 +120,40 @@ def make_dp_train_step(task):
         return dict(zip(names, values.unbind()))
 
     return step
+
+
+def make_spatial_train_step(task, space):
+    """The H-sharded training step (``parallel/spatial.py:210-335``):
+    ``step(state, batch, generator, progress=0.0) -> metrics``, ``batch``
+    whole frames of this rank's data replica.
+
+    The depth net runs on this rank's rows (``task.net_input_transform``
+    slices ``rgb`` and ``input_depth`` after the lr-flip); its inverse-
+    depth pyramids are gathered and ``depth_loss`` averaged over the
+    replica's blocks (``task.output_hook``), so every loss runs unchanged
+    on full frames, on every rank; the pose net reads the full ``rgb`` the
+    rank holds, replicated.  Then :func:`make_dp_train_step`:
+    gradients, metrics and running statistics averaged over every rank
+    (each block's gradient carries the factor ``n`` of the gather's
+    backward, see ``parallel/spatial.py``; space ranks hold equal metrics
+    and statistics, so their mean is the data-parallel one).  The lr-flip
+    and dropout draws come from the caller's generator, seeded alike on
+    every rank.  Only H is sharded in training, as in the JAX package."""
+    if space.n_w is not None:
+        raise NotImplementedError('the spatial training step shards H only, as the '
+                                  'JAX package\'s does')
+    spatial.shard_network(task.depth_net, space)
+    task.net_input_transform = lambda rgb, lidar: (spatial.shard_spatial(rgb, space),
+                                                   spatial.shard_spatial(lidar, space))
+
+    def gather_outputs(out):
+        out = dict(out)
+        for key in ('inv_depths', 'inv_depths_rgbd'):
+            if key in out:
+                out[key] = [spatial.gather_spatial(d, space) for d in out[key]]
+        if 'depth_loss' in out:
+            out['depth_loss'] = spatial.space_all_reduce(out['depth_loss'], space, mean=True)
+        return out
+
+    task.output_hook = gather_outputs
+    return make_dp_train_step(task)

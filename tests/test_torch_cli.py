@@ -203,7 +203,7 @@ def test_inference_matches_jax_cli(inference, port_inference):
 
 
 @pytest.mark.parametrize('argv,analysis,slice_name', [
-    (['--spatial', '2'], {}, 'Slice E'),
+    (['--spatial', '2'], {}, r'--spatial 2 needs 2 processes.*torchrun --nproc_per_node 2'),
     (['--dp', '2'], {}, 'torchrun --nproc_per_node 2'),
 ])
 def test_inference_refuses_unported_before_work(inference, tmp_path, argv,
