@@ -94,15 +94,15 @@ Run from the repository root, on a machine with one CUDA card and nvcc.
       ``PoseNet`` at batch 2 through
       ``KITTIDataset`` (4 frames with both context frames) and validation;
       the checkpoint holds the pose network and reloads bit-equal.
-9. The KITTI-DE evaluation end to end: a synthetic tree of 115 frames (the
-   size of KITTI-DE's split) at KITTI's 375x1242 written to
-   ``build/eval_smoke/`` by ``write_split`` (RGB, uint16 GT depth, GT edges,
+9. The KITTI-DE evaluation end to end: a synthetic tree of 60 frames (about
+   half of KITTI-DE's 115-frame split: cut from 115 when phase 13 joined)
+   at KITTI's 375x1242 written to ``build/eval_smoke/`` by ``write_split`` (RGB, uint16 GT depth, GT edges,
    LiDAR), then ``python -m mindtheedge_tpu_torch.cli.infer_edges`` with
    ``configs/infer_packnet_kitti.yaml`` (only its split, GT lists and output
    folder replaced: inference at 384x1280, batch 4, u16 wire, then the
    depth metrics, D3R and the edge AUC over 12 Canny thresholds) in a fresh
    process; the NMS kernel must launch 0 times there.  Fails unless the CLI
-   exits 0 having written 115 depth maps and colour PNGs, finite mean depth
+   exits 0 having written 60 depth maps and colour PNGs, finite mean depth
    metrics and both AUCs in [0, 1], with the g++-built native matcher.
    Prints the wall seconds and frames/s of inference, of the depth metrics
    and D3R, and of the edge AUC, the AUCs and the mean depth metrics.
@@ -183,6 +183,36 @@ Run from the repository root, on a machine with one CUDA card and nvcc.
       (5 pack levels need a multiple of 32; 1936 is not): every depth map
       within rtol 1e-4, atol 1e-5 of the unsharded CLI's on the card;
       wall seconds of both.
+13. The depth networks and tasks beside PackNet-SAN 1A
+   (``tests/test_torch_variants_cuda.py``; no kernel on these paths: the
+   NMS kernel must launch 0 times).
+   a. At [2,64,96], (16,)*6, card vs CPU from the same weights: the eval
+      forward of the 4-channel PackNet-SAN 1A with LiDAR, PackNet-SAN 1B,
+      ``PackNet01`` 1A and 1B (4 scales, rtol 1e-4, atol 1e-5); one
+      ``train_step`` of ``SelfSupModel`` + ``PoseNet`` on ``PackNet01``
+      (8a's bounds) and of ``GenericSelfSupModel`` (``RaySurfaceResNet`` 18
+      + ``PoseNet``) at progress 0.5 (loss and metrics rtol 1e-4; the
+      generic camera's patch logits card vs CPU within 1e-5, its warp on
+      pinhole rays against fp64 within 1e-3 of each gradient's largest; each
+      network's backward from seeded cotangents within 8a's gradient
+      bound; the step's own gradients printed, not held: they are
+      ill-conditioned in fp32 on any device, near-ties of the soft argmax
+      and coordinates on pixel centres, where the sampler's derivative
+      jumps, part two devices' roundings).
+      Then ROADMAP L2: the seeded (16,)*6 network on blocky frames
+      [4,128,128], ``F.group_norm`` and the two-pass statistics each
+      against fp64 on the card.
+   b. ``cli.infer_edges --wire f32`` in a fresh process on 8 synthetic
+      KITTI-size frames with a .npy ``rgb_edge`` column, the SLIM
+      PackNet-SAN 1A with ``input_channels: 4`` and LiDAR, written to
+      ``build/variants_smoke/``: every depth map within rtol 1e-4, atol
+      1e-5 of the network called directly on the card; ms per batch.
+   c. 8c's config as ``SelfSupModel`` on ``PackNet01`` at
+      ``FULL_CHANNELS`` (batch 3, 384x1280, fp32, 2 contexts): 2 warm-up
+      and 3 timed steps, ms, the parts, peak memory.
+   d. ``GenericSelfSupModel`` on 8c's batch cut to 2 images: 1 warm-up and
+      3 timed steps, ms and peak memory; then ``project_generic``'s
+      forward time inside one step, by CUDA events around each call.
 
 Prints one line per phase, each phase's wall time, then the card's name
 and power limit, a JSON line of the kernels, and as its last line
@@ -207,8 +237,9 @@ from mindtheedge_tpu_torch.cli.infer_edge_estimation import annotate_batch
 from mindtheedge_tpu_torch.cli import infer_edges, train_edges
 from mindtheedge_tpu_torch.cli.infer_edges import infer_batch
 from mindtheedge_tpu_torch.config import get_cfg_defaults, parse_train_file
+from mindtheedge_tpu_torch.geometry import camera_generic
 from mindtheedge_tpu_torch.models.packnet import SLIM_CHANNELS, to_train_device
-from mindtheedge_tpu_torch.models.tasks import build_depth_net, build_task
+from mindtheedge_tpu_torch.models.tasks import GenericSelfSupTask, build_depth_net, build_task
 from mindtheedge_tpu_torch.ops import edge_ops, wire
 from mindtheedge_tpu_torch.ops.cuda import build, nms_kernel
 from mindtheedge_tpu_torch.parallel import spatial
@@ -216,11 +247,15 @@ from mindtheedge_tpu_torch.parallel.mesh import all_reduce_mean, make_dp_train_s
 from mindtheedge_tpu_torch.training.checkpoint import load_checkpoint
 from mindtheedge_tpu_torch.training.experiment import Experiment
 from mindtheedge_tpu_torch.training.train_step import create_train_state, make_train_step
+from mindtheedge_tpu_torch.utils.depth import inv2depth
 from tests.test_torch_annotate_cuda import (
     annotate_card_vs_cpu, random_frames, task_config)
 from tests.test_torch_dp_cuda import dp_vs_plain, oracle_gaps, oracle_job, start_ranks
 from tests.test_torch_spatial_cuda import card_pair_job, cli_job, forward_gap, step_gaps
 from tests.test_torch_train_cuda import write_kitti_tree
+from tests.test_torch_variants_cuda import (
+    EVAL_CASES, PACKNET01_SELFSUP, camera_generic_card_vs_fp64, eval_card_vs_cpu,
+    generic_step_card_vs_cpu, group_norm_fp64_gaps, patch_logits_card_vs_cpu)
 from tests.test_torch_nms_kernel import dyadic_patch, gaussian_blur, misaligned
 from tests.test_torch_train_cuda import (
     BAND, GRAD_RTOL, PHOTOMETRIC_BOUND, TASKS, bf16_card_vs_cpu, kitti_intrinsics,
@@ -245,7 +280,7 @@ KITTI_DIR = 'build/train_smoke_kitti'
 KITTI_H, KITTI_W = 96, 320
 EVAL_CONFIG = 'configs/infer_packnet_kitti.yaml'
 EVAL_DIR = 'build/eval_smoke'
-EVAL_FRAMES = 115                       # KITTI-DE's split, kitti_115_split.txt
+EVAL_FRAMES = 60     # KITTI-DE's split has 115 (kitti_115_split.txt); cut when phase 13 joined
 EVAL_H, EVAL_W = 375, 1242              # KITTI's frames and GT
 EVAL_THRESHOLDS = 12                    # Canny thresholds 20..240 of the protocol
 DP_DIR = 'build/dp_smoke'
@@ -261,6 +296,8 @@ DDAD_CONFIG = 'configs/eval_ddad_de.yaml'
 DDAD_H, DDAD_W = 1216, 1936             # DDAD-DE's frames
 DDAD_SHAPE = (1216, 1920)               # rounded down to a multiple of 32
 DDAD_FRAMES = 2
+VARIANTS_DIR = 'build/variants_smoke'
+EDGE_FRAMES = 8                         # 13b: KITTI-size frames with an rgb_edge column
 
 
 def check(ok, what):
@@ -796,7 +833,7 @@ def stage_ms(task, state, batch, gen):
     out = timed(0, lambda: task.run_depth(batch, train=True, generator=gen))
     total, _ = timed(1, lambda: task.losses(batch, out))
     names = ['forward', 'loss', 'backward', 'optimizer']
-    if task.pose_net is not None:
+    if task.pose_net is not None and not isinstance(task, GenericSelfSupTask):
         timed(4, lambda: task.run_pose(batch))
         timed(5, lambda: task._self_sup_loss(batch, out, task.run_pose(batch)))
         names += ['pose net', 'photometric loss']
@@ -806,8 +843,9 @@ def stage_ms(task, state, batch, gen):
     return {n: events[2 * i].elapsed_time(events[2 * i + 1]) for i, n in enumerate(names)}
 
 
-def train_full(dev, cfg, batch, label, make_step=make_train_step):
-    """``TRAIN_WARMUP`` + ``TRAIN_STEPS`` full-width training steps made by
+def train_full(dev, cfg, batch, label, make_step=make_train_step, warmup=TRAIN_WARMUP,
+               steps=TRAIN_STEPS):
+    """``warmup`` + ``steps`` full-width training steps made by
     ``make_step`` of the task of ``cfg`` on ``batch``, from the weights and
     generator of ``cfg.arch.seed`` -> (mean ms per step, peak bytes, the
     loss of every step, warm-ups first)."""
@@ -818,22 +856,22 @@ def train_full(dev, cfg, batch, label, make_step=make_train_step):
     gen = torch.Generator(dev).manual_seed(cfg.arch.seed)
     params = state.parameters()
     torch.cuda.reset_peak_memory_stats()
-    warm = [step(state, batch, gen)['loss'] for _ in range(TRAIN_WARMUP)]
+    warm = [step(state, batch, gen)['loss'] for _ in range(warmup)]
     torch.cuda.synchronize()
     tuning_peak = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     before = [p.detach().clone() for p in params]
     running = lambda: [b for n in state.networks() for k, b in n.named_buffers() if 'running' in k]
     stats_before = [b.clone() for b in running()]
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(TRAIN_STEPS + 1)]
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
     metrics = []
     events[0].record()
-    for i in range(TRAIN_STEPS):
+    for i in range(steps):
         metrics.append(step(state, batch, gen))
         events[i + 1].record()
     events[-1].synchronize()
     peak = torch.cuda.max_memory_allocated()
-    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(TRAIN_STEPS)]
+    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(steps)]
     rows = [{k: float(v) for k, v in m.items()} for m in metrics]
     for r in rows:
         check(all(np.isfinite(v) for v in r.values()), f'{label}: non-finite metrics {r}')
@@ -843,12 +881,13 @@ def train_full(dev, cfg, batch, label, make_step=make_train_step):
           f'{label}: {moved} parameter tensors and {stats_moved} running statistics moved')
     mean_ms = float(np.mean(step_ms))
     stages = stage_ms(task, state, batch, gen)
-    line = (f'{label} {H}x{W} b{TRAIN_B} {PRECISION[task.compute_dtype]} (TF32 off), remat '
+    b = batch['rgb'].shape[0]
+    line = (f'{label} {H}x{W} b{b} {PRECISION[task.compute_dtype]} (TF32 off), remat '
             f'{cfg.model.depth_net.remat!r}, {sum(p.numel() for p in params)} '
             f'parameters, dropout {cfg.model.depth_net.dropout}, flip '
-            f'{cfg.model.loss.flip_lr_prob}: {TRAIN_STEPS} steps after {TRAIN_WARMUP} '
+            f'{cfg.model.loss.flip_lr_prob}: {steps} steps after {warmup} '
             f'warm-up, {mean_ms:.3f} ms/step by CUDA events (min {min(step_ms):.3f}, '
-            f'max {max(step_ms):.3f}), {TRAIN_B * 1e3 / mean_ms:.3f} img/s, peak '
+            f'max {max(step_ms):.3f}), {b * 1e3 / mean_ms:.3f} img/s, peak '
             f'{peak / 2**30:.3f} GiB (warm-up with cuDNN autotuning '
             f'{tuning_peak / 2**30:.3f} GiB); {moved} of {len(before)} parameter tensors '
             f'and {stats_moved} of {len(stats_before)} running statistics moved')
@@ -905,13 +944,20 @@ def selfsup_config():
     return cfg
 
 
-def phase_train_selfsup(dev):
+def selfsup_full_batch(dev):
+    """7b's batch plus two context frames (the scene shifted by 4 and -4
+    pixels), their originals and KITTI intrinsics."""
     batch = full_width_batch(dev)
     batch['rgb_original'] = batch['rgb']
     batch['rgb_context'] = [torch.roll(batch['rgb'], shift, dims=2) for shift in (4, -4)]
     batch['rgb_context_original'] = batch['rgb_context']
     batch['intrinsics'] = torch.from_numpy(kitti_intrinsics(TRAIN_B, H, W)).to(dev)
-    return train_full(dev, selfsup_config(), batch, 'phase 8c self-supervised train')
+    return batch
+
+
+def phase_train_selfsup(dev):
+    return train_full(dev, selfsup_config(), selfsup_full_batch(dev),
+                      'phase 8c self-supervised train')
 
 
 def phase_train_kitti_cli(dev):
@@ -1058,7 +1104,7 @@ def eval_config(split, gt_list, edge_list, folder):
 
 def phase_eval():
     """The KITTI-DE evaluation end to end: ``infer_edges`` with the shipped
-    config on a synthetic 115-frame tree, in a fresh process -> the NMS
+    config on a synthetic 60-frame tree, in a fresh process -> the NMS
     kernel's launches there."""
     import shutil
     shutil.rmtree(EVAL_DIR, ignore_errors=True)
@@ -1561,6 +1607,184 @@ def phase_spatial_gloo(dev, request, want):
             '12c': sum(c['nms_launches'] for c in cli)}
 
 
+def phase_variants_small(dev):
+    """13a: the new networks and tasks card vs CPU at [2,64,96], and the
+    card's GroupNorm against fp64 (ROADMAP L2)."""
+    for name in EVAL_CASES:
+        err = eval_card_vs_cpu(dev, name)
+        print(f'phase 13a {name} eval card vs cpu [2,64,96] (16,)*6: 4 scales within rtol '
+              f'1e-4 atol 1e-5, max |err| {err:.3e}')
+    loss_h, loss_c, worst = train_step_card_vs_cpu(dev, spec=PACKNET01_SELFSUP)
+    print(f'phase 13a SelfSupModel + PoseNet on PackNet01 train_step card vs cpu [2,64,96] '
+          f'(16,)*6: loss {loss_c} on the card, {loss_h} on the CPU; worst gradient error '
+          f'{worst["grad_vs_max"]:.3e} of its tensor\'s largest |gradient| (bound 1e-4, or '
+          f'{PACKNET01_SELFSUP[2]:g} of the network\'s largest); worst parameter error after '
+          f'the Adam step {worst["param_vs_lr"]:.3e} lr (bound 1e-2)')
+    logits_err = patch_logits_card_vs_cpu(dev)
+    warp_err = camera_generic_card_vs_fp64(dev)
+    print(f'phase 13a camera_generic on the card: the patch logits and their backward against '
+          f'the CPU within {logits_err:.3e} of their largest (bound 1e-5); '
+          f'view_synthesis_generic on pinhole rays [2,32,48] against the CPU in fp64: worst '
+          f'gradient error {warp_err:.3e} of its tensor\'s largest (bound 1e-3)')
+    gaps = generic_step_card_vs_cpu(dev)
+    print('phase 13a GenericSelfSupModel (RaySurfaceResNet 18 + PoseNet) at progress 0.5, '
+          'card vs cpu [2,64,96]: one train_step\'s loss and metrics within rtol 1e-4; the '
+          'networks\' backward from seeded cotangents: worst gradient error '
+          + ', '.join(f'{tag} {err:.3e}' for tag, err in gaps['backward'].items())
+          + f' of its tensor\'s largest (bound {GRAD_RTOL:g}); the step\'s gradients, not held '
+          '(ill-conditioned in fp32: near-ties of the soft argmax, coordinates on pixel centres), '
+          'relative L2 card vs cpu (the cpu\'s fp32 vs its fp64): '
+          + ', '.join(f'{tag} {card:.3e} ({own:.3e})' for tag, (card, own) in gaps['step'].items()))
+    l2 = group_norm_fp64_gaps(dev)
+    print('phase 13a L2: the seeded (16,)*6 PackNet-SAN 1A on blocky frames [4,128,128] on '
+          'the card, largest relative error against its fp64 forward at scales 0-3: '
+          'F.group_norm ' + ', '.join(f'{e:.3e}' for e in l2['plain'])
+          + '; two-pass statistics ' + ', '.join(f'{e:.3e}' for e in l2['two_pass']))
+    check(max(l2['two_pass']) <= 3e-5, f'13a two-pass GroupNorm off fp64 by {l2["two_pass"]}')
+
+
+def edge_split(root):
+    """``EDGE_FRAMES`` KITTI-size frames of ``write_split`` with a .npy
+    ``rgb_edge`` map [H,W] in [0.2, 1] in the 6th column -> the split."""
+    split, _ = write_split(root, EDGE_FRAMES, EVAL_H, EVAL_W, seed=13)
+    rng = np.random.RandomState(13)
+    lines = []
+    with open(split) as f:
+        for i, line in enumerate(f.read().splitlines()):
+            parts = line.split(' ')
+            parts[5] = os.path.join(root, f'{i:06d}_rgb_edge.npy')
+            np.save(parts[5], rng.uniform(0.2, 1.0, (H, W)).astype(np.float32))
+            lines.append(' '.join(parts) + '\n')
+    with open(split, 'w') as f:
+        f.writelines(lines)
+    return split
+
+
+def phase_rgb_edge_cli(dev):
+    """13b: ``cli.infer_edges --wire f32`` of the 4-channel SLIM PackNet-SAN
+    1A with LiDAR in a fresh process, against the network called directly
+    on the card -> the NMS kernel's launches (in the CLI and here)."""
+    import shutil
+    import yaml
+    root = os.path.join(VARIANTS_DIR, 'rgb_edge')
+    shutil.rmtree(root, ignore_errors=True)
+    split = edge_split(os.path.join(root, 'data'))
+    cfg = {'model': {'name': 'SemiSupEdgeModel',
+                     'depth_net': {'name': 'PackNetSAN01', 'version': '1A',
+                                   'input_channels': 4}},
+           'datasets': {'augmentation': {'image_shape': [H, W]},
+                        'test': {'dataset': ['GTA'], 'path': [''], 'split': [split],
+                                 'input_depth_type': ['lidar'],
+                                 'depth_type': ['groundtruth']}},
+           'save': {'folder': os.path.join(root, 'out')},
+           'checkpoint': {'filepath': os.path.join(root, 'missing.ckpt')},
+           'analysis': {'run_metrics': False, 'run_heavy_edge_metrics': False}}
+    yaml_path = os.path.join(root, 'infer.yaml')
+    with open(yaml_path, 'w') as f:
+        yaml.safe_dump(cfg, f)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, '-c', CLI_RUNNER,
+                           'mindtheedge_tpu_torch.cli.infer_edges', '--config', yaml_path,
+                           '--batch', str(B), '--wire', 'f32'],
+                          capture_output=True, text=True, timeout=600)
+    wall_s = time.perf_counter() - t0
+    with open(os.path.join(root, 'cli.log'), 'w') as f:
+        f.write(proc.stdout + proc.stderr)
+    check(proc.returncode == 0, f'13b infer_edges exited {proc.returncode}: '
+          f'{(proc.stdout + proc.stderr)[-3000:]}')
+    infer_s = float(re.search(rf'Inference of {EDGE_FRAMES} frames: ([\d.]+) s',
+                              proc.stdout).group(1))
+    cli_launches = int(re.search(r'NMS launches (\d+)', proc.stdout).group(1))
+
+    conf = get_cfg_defaults()
+    conf.merge_from_file(yaml_path)
+    task = build_task(conf, device=dev)
+    with open(split) as f:
+        lines = f.read().splitlines()
+    nms_kernel.launches = 0
+    worst, batches = 0.0, []
+    for i in range(0, EDGE_FRAMES, B):
+        rgb, lidar, edge = (torch.from_numpy(np.stack(a)).to(dev) for a in zip(
+            *[infer_edges._read_inputs(ln, conf, (H, W)) for ln in lines[i:i + B]]))
+        batches.append((rgb, lidar, edge))
+        with torch.no_grad():
+            depth = inv2depth(task.infer({'rgb': rgb, 'input_depth': lidar, 'rgb_edge': edge})
+                              ['inv_depths'][0][..., 0]).cpu().numpy()
+        for b, d in enumerate(depth):
+            got = np.load(os.path.join(root, 'out', f'{i + b:08d}_regular.npy'))
+            check(got.shape == (H, W) and np.isfinite(got).all(), f'13b depth map {got.shape}')
+            np.testing.assert_allclose(got, d, rtol=1e-4, atol=1e-5, err_msg=f'13b frame {i + b}')
+            worst = max(worst, float(np.abs(got - d).max()))
+    rgb, lidar, edge = batches[0]
+    with torch.no_grad():
+        forward_ms = sync_ms(lambda i: task.infer(
+            {'rgb': rgb, 'input_depth': lidar, 'rgb_edge': edge}), 5)
+    print(f'phase 13b infer_edges --wire f32, PackNet-SAN 1A SLIM input_channels 4 with '
+          f'LiDAR, {EDGE_FRAMES} frames {EVAL_H}x{EVAL_W} resized to {H}x{W} with a .npy '
+          f'rgb_edge column, b{B} fp32, in a fresh process: every depth map within rtol 1e-4 '
+          f'atol 1e-5 of the network called directly on the card (max |err| {worst:.3e} m); '
+          f'the CLI {wall_s:.1f} s wall, its inference {infer_s:.3f} s '
+          f'({1e3 * infer_s / (EDGE_FRAMES // B):.1f} ms per batch, cuDNN\'s autotuner '
+          f'included); the direct forward {forward_ms:.3f} ms per batch by CUDA events; nms '
+          f'launches {cli_launches} in the CLI, {nms_kernel.launches} here')
+    return cli_launches + nms_kernel.launches
+
+
+def phase_packnet01_train(dev):
+    """13c: 8c's config (SelfSupModel here) on PackNet01 at FULL_CHANNELS."""
+    cfg = selfsup_config()
+    cfg.model.name = 'SelfSupModel'
+    cfg.model.depth_net.name = 'PackNet01'
+    cfg.model.depth_net.channels = ()
+    return train_full(dev, cfg, selfsup_full_batch(dev),
+                      'phase 13c SelfSupModel + PoseNet on PackNet01 FULL_CHANNELS train',
+                      warmup=2, steps=3)
+
+
+def phase_generic_train(dev):
+    """13d: GenericSelfSupModel (RaySurfaceResNet 18 + PoseNet) on 8c's
+    batch cut to 2 images, and ``project_generic``'s time in one step."""
+    cfg = selfsup_config()
+    cfg.model.name = 'GenericSelfSupModel'
+    cfg.model.depth_net.name = 'RaySurfaceResNet'
+    cfg.model.depth_net.version = ''
+    batch = {k: [x[:2] for x in v] if isinstance(v, list) else v[:2]
+             for k, v in selfsup_full_batch(dev).items()}
+    out = train_full(dev, cfg, batch, 'phase 13d GenericSelfSupModel train', warmup=1, steps=3)
+    task = build_task(cfg, device=dev)
+    state = create_train_state(cfg, to_train_device(task.depth_net, dev), pose_net=task.pose_net)
+    step = make_train_step(task)
+    gen = torch.Generator(dev).manual_seed(cfg.arch.seed)
+    step(state, batch, gen)
+    plain = camera_generic.project_generic
+    calls = []
+
+    def timed(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        coords = plain(*args, **kwargs)
+        end.record()
+        calls.append((start, end, tuple(args[0].shape)))
+        return coords
+
+    camera_generic.project_generic = timed
+    try:
+        begin, finish = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        begin.record()
+        step(state, batch, gen)
+        finish.record()
+        finish.synchronize()
+    finally:
+        camera_generic.project_generic = plain
+    step_ms = begin.elapsed_time(finish)
+    proj_ms = sum(a.elapsed_time(b) for a, b, _ in calls)
+    print(f'phase 13d project_generic in one step: {len(calls)} calls (2 contexts x 4 scales, '
+          f'shapes {sorted({c[2] for c in calls})}), forward {proj_ms:.3f} ms by CUDA events '
+          f'around each call, of a {step_ms:.3f} ms step ({100 * proj_ms / step_ms:.1f} %; '
+          'its backward runs in the step\'s backward and is not in this figure)')
+    return out
+
+
 def card_line():
     out = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
@@ -1637,6 +1861,16 @@ def main():
     for name, n in launches12.items():
         check(n == 0, f'NMS kernel launched {n} times in phase {name}')
     print(f'phase 12 wall time {time.perf_counter() - t12:.1f} s')
+    t13 = time.perf_counter()
+    launches13 = {}
+    for name, fn in (('13a', phase_variants_small), ('13b', phase_rgb_edge_cli),
+                     ('13c', phase_packnet01_train), ('13d', phase_generic_train)):
+        nms_kernel.launches = 0
+        out = timed(name, fn, dev)
+        launches13[name] = out if name == '13b' else nms_kernel.launches
+        check(launches13[name] == 0,
+              f'NMS kernel launched {launches13[name]} times in phase {name}')
+    print(f'phase 13 wall time {time.perf_counter() - t13:.1f} s')
     print('phase wall times (s): ' + ', '.join(f'{k} {v:.1f}' for k, v in walls.items()))
     print(f'chip_smoke wall time {time.perf_counter() - t0:.1f} s')
     card = card_line()
@@ -1647,7 +1881,8 @@ def main():
         'replaces': 'mindtheedge_tpu/ops/pallas/nms_kernel.py:111',
         'launches': (launches4 + launches5 + launches6 + launches7 + launches8 + launches9
                      + launches10a + launches10b + launches10c + sum(launches10.values())
-                     + sum(launches11.values()) + sum(launches12.values())),
+                     + sum(launches11.values()) + sum(launches12.values())
+                     + sum(launches13.values())),
         'launches_by_path': {'serve': launches4, 'annotate': launches5,
                              'infer': launches6, 'train': launches7,
                              'train_dee_completion_selfsup': launches8,
@@ -1660,7 +1895,11 @@ def main():
                              'infer_dp_cli': launches11['11d'],
                              'spatial_infer_nccl1': launches12['12a'],
                              'spatial_train_gloo2': launches12['12b'],
-                             'spatial_infer_cli_gloo2': launches12['12c']},
+                             'spatial_infer_cli_gloo2': launches12['12c'],
+                             'variants_card_vs_cpu': launches13['13a'],
+                             'infer_rgb_edge_cli': launches13['13b'],
+                             'train_packnet01': launches13['13c'],
+                             'train_generic': launches13['13d']},
         'max_abs_err': max(err2, err4, err5, err10),
         'mismatched_px': bad2 + bad4 + bad5 + bad10,
         'checked_px': px2 + prob.numel() + px5 + prob10.numel(),

@@ -142,8 +142,10 @@ def _dp_processes(args, n_space=1):
 
 
 def _read_inputs(line, config, image_shape):
-    """Host-side preprocessing for one split line (``infer_edges.py:54-110``
-    without the 4-channel ``rgb_edge`` input) -> (rgb, lidar or None)."""
+    """Host-side preprocessing for one split line (``infer_edges.py:54-110``)
+    -> (rgb, lidar or None, rgb_edge or None).  A 4-channel network reads
+    the line's 6th column as its ``rgb_edge`` [H,W,1]: a ``.npy`` map, or
+    an image's channel 0 / 255, as stored (not resized)."""
     from mindtheedge_tpu_torch.data.augmentations import (
         resize_depth_preserve, resize_image)
     from mindtheedge_tpu_torch.data.readers import (
@@ -187,7 +189,18 @@ def _read_inputs(line, config, image_shape):
         if lidar is not None:
             lidar = resize_depth_preserve(lidar, image_shape)
             lidar_np = lidar.astype(np.float32)
-    return rgb_np, lidar_np
+
+    edge_np = None
+    if config.model.depth_net.input_channels == 4 and len(parts) > 5 \
+            and parts[5] not in ('', 'None'):
+        if parts[5].endswith('.npy'):
+            edge_np = np.load(parts[5]).astype(np.float32)
+        else:
+            import cv2
+            edge_np = cv2.imread(parts[5])[:, :, 0].astype(np.float32) / 255.0
+        if edge_np.ndim == 2:
+            edge_np = edge_np[:, :, None]
+    return rgb_np, lidar_np, edge_np
 
 
 def save_depth_outputs(pred_depth, out_base):
@@ -207,15 +220,17 @@ def save_depth_outputs(pred_depth, out_base):
 
 
 @torch.no_grad()
-def infer_batch(task, rgb, lidar=None, wire_format='u16', space=None):
+def infer_batch(task, rgb, lidar=None, wire_format='u16', space=None, rgb_edge=None):
     """The device work of one batch (``infer_edges.py:218-225``).
 
     ``rgb`` [B,H,W,3] in [0, 1] on the task's device; ``lidar`` None, a
     dense [B,H,W,1] map in metres, or an (idx [B,cap], val [B,cap] uint16)
-    pair from ``wire.encode_lidar_sparse``, scattered to the dense map here.
+    pair from ``wire.encode_lidar_sparse``, scattered to the dense map here;
+    ``rgb_edge`` None or [B,H,W,1], the 4-channel network's 4th input.
     Returns the depth of scale 0 [B,H,W] in ``wire_format``.  Under
     ``space`` (``spatial.shard_network`` applied to the task's network)
-    the network runs on this rank's block of the frames, and the depth is
+    the network runs on this rank's block of the frames (of ``rgb_edge``
+    too, which multiplies the block's inverse depth), and the depth is
     gathered over the replica before it is encoded.
     """
     if isinstance(lidar, tuple):
@@ -223,6 +238,8 @@ def infer_batch(task, rgb, lidar=None, wire_format='u16', space=None):
     batch = {'rgb': rgb}
     if lidar is not None:
         batch['input_depth'] = lidar
+    if rgb_edge is not None:
+        batch['rgb_edge'] = rgb_edge
     if space is not None:
         batch = {k: spatial.shard_spatial(v, space) for k, v in batch.items()}
     depth = inv2depth(task.infer(batch)['inv_depths'][0])
@@ -320,7 +337,7 @@ def main(argv=None, device=None):
         if not ids:
             continue
         inputs = [_read_inputs(lines[j], cfg, image_shape) for j in ids]
-        for j, (r, _) in zip(ids, inputs):
+        for j, (r, _, _) in zip(ids, inputs):
             if space is not None and r.shape[:2] != first_shape:
                 raise SystemExit(
                     f'--spatial needs a uniform image shape: split line '
@@ -329,14 +346,15 @@ def main(argv=None, device=None):
                     'datasets.augmentation.image_shape to resize uniformly.')
         # pad the tail chunk to keep one batch shape
         inputs += [inputs[-1]] * (share - len(inputs))
-        rgb = upload(np.stack([r for r, _ in inputs]), dev)
+        rgb = upload(np.stack([r for r, _, _ in inputs]), dev)
+        edge = None if inputs[0][2] is None else upload(np.stack([e for _, _, e in inputs]), dev)
         lidar = None
         if inputs[0][1] is not None:
             sparse = None
             if sparse_cap:
                 try:
                     sparse = [wire.encode_lidar_sparse(l, sparse_cap)
-                              for _, l in inputs]
+                              for _, l, _ in inputs]
                 except ValueError:
                     sparse = None   # too dense for the wire: ship dense
             if sparse is not None:
@@ -344,8 +362,8 @@ def main(argv=None, device=None):
                 lidar = (upload(np.stack([s[0] for s in sparse]).view(np.int32), dev),
                          upload(np.stack([s[1] for s in sparse]), dev))
             else:
-                lidar = upload(np.stack([l for _, l in inputs]), dev)
-        depth = infer_batch(task, rgb, lidar, args.wire, space)
+                lidar = upload(np.stack([l for _, l, _ in inputs]), dev)
+        depth = infer_batch(task, rgb, lidar, args.wire, space, edge)
         in_flight.append((start_readback(depth), ids))
         if len(in_flight) > LAG:
             drain(in_flight.pop(0))

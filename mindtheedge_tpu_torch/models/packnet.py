@@ -1,8 +1,10 @@
-"""PackNet-SAN depth network: counterpart of
-``mindtheedge_tpu/models/packnet.py`` (reference ``PackNetSAN01.py``).
+"""PackNet depth networks: counterpart of
+``mindtheedge_tpu/models/packnet.py`` (reference ``PackNetSAN01.py``,
+``PackNet01.py``, ``PackNetSlim01.py``).
 
-NCHW inside; ``PackNetSAN.forward`` takes and returns NHWC like the JAX
-module.  The ``state_dict`` keys are the reference PackNetSAN01 names.
+NCHW inside; each network's ``forward`` takes and returns NHWC like the
+JAX modules.  The ``state_dict`` keys are the reference PackNetSAN01
+names.
 """
 
 import math
@@ -19,7 +21,8 @@ from mindtheedge_tpu_torch.ops.packing import upsample_nearest2x
 from mindtheedge_tpu_torch.ops.sparse import MinkConv, SparseDepthEncoder
 
 # Encoder/decoder widths (PackNetSAN01.py:179-184)
-SLIM_CHANNELS = (32, 32, 64, 128, 256, 512)
+SLIM_CHANNELS = (32, 32, 64, 128, 256, 512)     # PackNetSlim / PackNetSAN
+FULL_CHANNELS = (64, 64, 64, 128, 256, 512)     # PackNet01 (PackNet01.py:34-35)
 NUM_BLOCKS = (2, 2, 3, 3)
 PACK_KERNEL = (5, 3, 3, 3, 3)
 UNPACK_KERNEL = (3, 3, 3, 3, 3)
@@ -66,51 +69,86 @@ class PackNetSlimEncoder(nn.Module):
         return x5p, [x, x1p, x2p, x3p, x4p]
 
 
-class PackNetDecoder(nn.Module):
-    """Reference ``Decoder``, version A (concatenated skips); returns the
-    inverse depths at strides 1, 2, 4, 8."""
+def decoder_version(version):
+    """The decoder's letter of a network version, by the JAX package's rule
+    (``packnet.py:223, 289``): '1A' -> 'A', '1B' -> 'B', '1' -> 'A'."""
+    return version[1:] or 'A'
 
-    def __init__(self, channels=SLIM_CHANNELS, out_channels=1):
+
+class PackNetDecoder(nn.Module):
+    """Reference ``Decoder`` (``packnet.py:94-178``); returns the inverse
+    depths at strides 1, 2, 4, 8.  Version ``'A'`` concatenates each unpack
+    layer's output with its skip; any other letter adds them
+    (``:114-115``), so each skip must have its unpack layer's width: the
+    widths ``channels`` must all be equal.  The JAX package's version B
+    fails at its first forward otherwise (an add that cannot broadcast);
+    here the network refuses at construction.  (The reference's version B
+    narrows its unpack layers to the skip widths instead; the port follows
+    the JAX package, its reference.)"""
+
+    def __init__(self, channels=SLIM_CHANNELS, out_channels=1, version='A'):
         super().__init__()
         ni, n1, n2, n3, n4, n5 = channels
         d, o = NUM_3D_FEAT, out_channels
+        self.concat = version == 'A'
+        if not self.concat and len(set(channels)) > 1:
+            raise ValueError(
+                f'PackNet decoder version {version!r} adds each skip to its unpack '
+                f'layer\'s output, so every width must be equal; channels {tuple(channels)} '
+                'give unpack widths (n5, n4, n3, n2, n1) against skip widths '
+                '(n4, n3, n2, n1, ni)')
+        skip = lambda n_unpack, n_skip: n_unpack + (n_skip if self.concat else 0)
         self.unpack5 = UnpackLayerConv3d(n5, n5, UNPACK_KERNEL[0], d=d)
         self.unpack4 = UnpackLayerConv3d(n5, n4, UNPACK_KERNEL[1], d=d)
         self.unpack3 = UnpackLayerConv3d(n4, n3, UNPACK_KERNEL[2], d=d)
         self.unpack2 = UnpackLayerConv3d(n3, n2, UNPACK_KERNEL[3], d=d)
         self.unpack1 = UnpackLayerConv3d(n2, n1, UNPACK_KERNEL[4], d=d)
-        self.iconv5 = ConvBlock(n5 + n4, n5, ICONV_KERNEL[0])
-        self.iconv4 = ConvBlock(n4 + n3, n4, ICONV_KERNEL[1])
-        self.iconv3 = ConvBlock(n3 + n2 + o, n3, ICONV_KERNEL[2])
-        self.iconv2 = ConvBlock(n2 + n1 + o, n2, ICONV_KERNEL[3])
-        self.iconv1 = ConvBlock(n1 + ni + o, n1, ICONV_KERNEL[4])
+        self.iconv5 = ConvBlock(skip(n5, n4), n5, ICONV_KERNEL[0])
+        self.iconv4 = ConvBlock(skip(n4, n3), n4, ICONV_KERNEL[1])
+        self.iconv3 = ConvBlock(skip(n3, n2) + o, n3, ICONV_KERNEL[2])
+        self.iconv2 = ConvBlock(skip(n2, n1) + o, n2, ICONV_KERNEL[3])
+        self.iconv1 = ConvBlock(skip(n1, ni) + o, n1, ICONV_KERNEL[4])
         self.disp4_layer = InvDepthHead(n4, o)
         self.disp3_layer = InvDepthHead(n3, o)
         self.disp2_layer = InvDepthHead(n2, o)
         self.disp1_layer = InvDepthHead(n1, o)
 
+    def _join(self, unpacked, skip, *rest):
+        """The iconv's input: [unpacked, skip] (A) or [unpacked + skip]
+        (B), then ``rest``, on channels."""
+        parts = [unpacked, skip] if self.concat else [unpacked + skip]
+        return torch.cat(parts + list(rest), 1)
+
     def forward(self, x5p, skips):
         skip1, skip2, skip3, skip4, skip5 = skips
-        iconv5 = self.iconv5(torch.cat([self.unpack5(x5p), skip5], 1))
-        iconv4 = self.iconv4(torch.cat([self.unpack4(iconv5), skip4], 1))
+        iconv5 = self.iconv5(self._join(self.unpack5(x5p), skip5))
+        iconv4 = self.iconv4(self._join(self.unpack4(iconv5), skip4))
         inv_depth4 = self.disp4_layer(iconv4)
-        iconv3 = self.iconv3(torch.cat(
-            [self.unpack3(iconv4), skip3, upsample_nearest2x(inv_depth4)], 1))
+        iconv3 = self.iconv3(self._join(
+            self.unpack3(iconv4), skip3, upsample_nearest2x(inv_depth4)))
         inv_depth3 = self.disp3_layer(iconv3)
-        iconv2 = self.iconv2(torch.cat(
-            [self.unpack2(iconv3), skip2, upsample_nearest2x(inv_depth3)], 1))
+        iconv2 = self.iconv2(self._join(
+            self.unpack2(iconv3), skip2, upsample_nearest2x(inv_depth3)))
         inv_depth2 = self.disp2_layer(iconv2)
-        iconv1 = self.iconv1(torch.cat(
-            [self.unpack1(iconv2), skip1, upsample_nearest2x(inv_depth2)], 1))
+        iconv1 = self.iconv1(self._join(
+            self.unpack1(iconv2), skip1, upsample_nearest2x(inv_depth2)))
         inv_depth1 = self.disp1_layer(iconv1)
         return [inv_depth1, inv_depth2, inv_depth3, inv_depth4]
 
 
-class PackNetSAN(nn.Module):
-    """PackNet-SAN version 1A (``packnet.py:181-272``).
+def _nchw(t):
+    return None if t is None else t.permute(0, 3, 1, 2)
 
-    ``forward(rgb [B,H,W,3], input_depth [B,H,W,1] or None, generator)``,
-    NHWC in and out:
+
+def _nhwc(ts):
+    return [t.permute(0, 2, 3, 1) for t in ts]
+
+
+class PackNetSAN(nn.Module):
+    """PackNet-SAN (``packnet.py:181-272``).
+
+    ``forward(rgb [B,H,W,3], input_depth [B,H,W,1] or None, generator,
+    rgb_edge [B,H,W,1] or None)``, NHWC in and out:
 
     * eval: one pass -> ``{'inv_depths': [4 x [B,h,w,1]]}``.  With LiDAR,
       each skip level is fused as ``skip * weight[i] + san[i] + bias[i]``
@@ -123,19 +161,21 @@ class PackNetSAN(nn.Module):
       RGBD pass is the only one that runs the SAN ladder, so it is the one
       that updates its running statistics, once per step.
 
+    ``input_channels`` 4 takes ``rgb_edge`` as the encoder's 4th input
+    channel in every pass, and at eval multiplies ``inv_depths[0]`` by it
+    (``:245-255``); 3 ignores ``rgb_edge``.  ``version`` '1A' concatenates
+    the decoder's skips, '1B' adds them (:class:`PackNetDecoder`, which
+    raises where the widths cannot add).
+
     ``generator`` feeds the encoder's dropout draws in training: each pass
     draws its masks before it runs the encoder, in the order the blocks
     use them.  ``remat`` (True or ``'conv'``, ``ops/remat.py``) recomputes
     the encoder, the SAN ladder and the decoder in the backward of a
     training pass, as the JAX package's ``nn.remat`` does (``'conv'`` keeps
     every conv's output); the loss, the gradients, the running statistics
-    and the generator's state are those of the pass without it.
-    ``version`` and ``input_channels`` are the config's
-    (``tasks.build_depth_net``); only 1A on RGB is ported: the 4-channel
-    ``rgb_edge`` input and versions other than 1A raise (ROADMAP Queue 1
-    item 10).  The config's ``freeze_*`` flags are the optimizer's: it
-    leaves those parameters out (``training/optimizer.py``), as the JAX
-    package does.
+    and the generator's state are those of the pass without it.  The
+    config's ``freeze_*`` flags are the optimizer's: it leaves those
+    parameters out (``training/optimizer.py``), as the JAX package does.
 
     The module computes in the dtype of its parameters and inputs: bf16
     where ``tasks.BaseTask.run_depth`` hands it bf16 casts of its fp32
@@ -145,17 +185,13 @@ class PackNetSAN(nn.Module):
     def __init__(self, channels=SLIM_CHANNELS, version='1A', input_channels=3,
                  output_channels=1, dropout=None, remat=False):
         super().__init__()
-        if version != '1A':
-            raise NotImplementedError(
-                f'PackNetSAN version {version!r}: only 1A is ported '
-                '(ROADMAP Queue 1 item 10)')
-        if input_channels != 3:
-            raise NotImplementedError(
-                f'PackNetSAN with input_channels={input_channels} (rgb_edge '
-                'input) waits for ROADMAP Queue 1 item 10')
+        if input_channels not in (3, 4):
+            raise ValueError(f'PackNetSAN takes 3 (rgb) or 4 (rgb + rgb_edge) input '
+                             f'channels, not {input_channels}')
+        self.input_channels = input_channels
         self.remat = checked('model.depth_net.remat', remat, REMAT_MODES)
-        self.encoder = PackNetSlimEncoder(channels, dropout=dropout)
-        self.decoder = PackNetDecoder(channels, output_channels)
+        self.encoder = PackNetSlimEncoder(channels, input_channels, dropout)
+        self.decoder = PackNetDecoder(channels, output_channels, decoder_version(version))
         self.mconvs = SparseDepthEncoder(tuple(channels[1:]))
         self.weight = nn.Parameter(torch.ones(5))
         self.bias = nn.Parameter(torch.zeros(5))
@@ -173,8 +209,8 @@ class PackNetSAN(nn.Module):
             params, *args, policy=self.remat)
 
     def run_network(self, rgb, input_depth=None, generator=None):
-        """NCHW: rgb [B,3,H,W], input_depth [B,1,H,W] -> (4 inverse depths,
-        the 6 fused skip features)."""
+        """NCHW: rgb [B,C,H,W] (C = ``input_channels``), input_depth
+        [B,1,H,W] -> (4 inverse depths, the 6 fused skip features)."""
         keeps = (self.encoder.dropout_keeps(rgb.shape[0], rgb.device, generator)
                  if self.training else None)
         x5p, skips = self._region(self.encoder, rgb, keeps)
@@ -186,22 +222,60 @@ class PackNetSAN(nn.Module):
             x5p = x5p * w[4] + san[4] + b[4]
         return self._region(self.decoder, x5p, skips), skips + [x5p]
 
-    def forward(self, rgb, input_depth=None, generator=None):
-        rgb = rgb.permute(0, 3, 1, 2)
-        lidar = None if input_depth is None else input_depth.permute(0, 3, 1, 2)
-        nhwc = lambda ts: [t.permute(0, 2, 3, 1) for t in ts]
+    def forward(self, rgb, input_depth=None, generator=None, rgb_edge=None):
+        if self.input_channels == 4:
+            if rgb_edge is None:
+                raise ValueError('PackNetSAN with input_channels 4 needs rgb_edge [B,H,W,1]')
+            rgb = torch.cat([rgb, rgb_edge], -1)
+        rgb, lidar = _nchw(rgb), _nchw(input_depth)
         if not self.training:
-            return {'inv_depths': nhwc(self.run_network(rgb, lidar)[0])}
+            inv_depths = _nhwc(self.run_network(rgb, lidar)[0])
+            if self.input_channels == 4:
+                inv_depths[0] = inv_depths[0] * rgb_edge
+            return {'inv_depths': inv_depths}
         inv_rgb, feat_rgb = self.run_network(rgb, None, generator)
-        out = {'inv_depths': nhwc(inv_rgb)}
+        out = {'inv_depths': _nhwc(inv_rgb)}
         if lidar is None:
             return out
         inv_rgbd, feat_rgbd = self.run_network(rgb, lidar, generator)
-        out['inv_depths_rgbd'] = nhwc(inv_rgbd)
+        out['inv_depths_rgbd'] = _nhwc(inv_rgbd)
         out['depth_loss'] = sum(
             torch.mean((d.detach().float() - r.float()) ** 2)
             for d, r in zip(feat_rgbd, feat_rgb)) / len(feat_rgbd)
         return out
+
+
+class PackNet01(nn.Module):
+    """The original PackNet (CVPR'20), RGB only, versions 1A and 1B
+    (``packnet.py:275-292``, reference ``networks/depth/PackNet01.py``):
+    the encoder and the decoder of :class:`PackNetSAN`, no SAN ladder and
+    no fusion parameters, widths :data:`FULL_CHANNELS` unless ``channels``
+    are given.  ``forward(rgb, input_depth=None, generator=None,
+    rgb_edge=None)`` takes the task's call and ignores the LiDAR and
+    ``rgb_edge``, as the JAX module's ``**kwargs`` does; it returns
+    ``{'inv_depths': [4 x [B,h,w,1]]}`` in training and at eval.
+    ``generator`` feeds the dropout draws in training."""
+
+    default_channels = FULL_CHANNELS
+
+    def __init__(self, channels=None, version='1A', dropout=None):
+        super().__init__()
+        channels = tuple(channels or self.default_channels)
+        self.encoder = PackNetSlimEncoder(channels, dropout=dropout)
+        self.decoder = PackNetDecoder(channels, 1, decoder_version(version))
+
+    def forward(self, rgb, input_depth=None, generator=None, rgb_edge=None):
+        x = _nchw(rgb)
+        keeps = (self.encoder.dropout_keeps(x.shape[0], x.device, generator)
+                 if self.training else None)
+        return {'inv_depths': _nhwc(self.decoder(*self.encoder(x, keeps)))}
+
+
+class PackNetSlim01(PackNet01):
+    """:class:`PackNet01` at :data:`SLIM_CHANNELS` (``packnet.py:295-297``,
+    reference ``networks/depth/PackNetSlim01.py``)."""
+
+    default_channels = SLIM_CHANNELS
 
 
 def init_weights(model, seed=0):

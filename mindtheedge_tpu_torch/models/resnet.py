@@ -10,8 +10,9 @@ reference's: the encoder is a torchvision-style ResNet under
 ``decoder.decoder`` (upconvs 4,0 ... 0,1 then dispconvs 0..3), the pose
 decoder's in ``decoder.net`` (squeeze, pose 0, 1, 2).  The classifier
 ``fc`` of torchvision's ResNet is not built; the ImageNet weights of the
-reference's ``pt`` versions are not bundled.  ``RaySurfaceResNet`` waits
-with the generic tasks (ROADMAP Queue 1 item 26).
+reference's ``pt`` versions are not bundled.  ``RaySurfaceResNet`` adds the
+ray-surface decoder under ``ray_surf``, laid out as the depth decoder
+(``resnet.py:224-261``, reference ``RaySurfaceResNet.py``).
 """
 
 import math
@@ -157,7 +158,11 @@ DEC_CHANNELS = (16, 32, 64, 128, 256)
 
 class DepthDecoder(nn.Module):
     """monodepth2 depth decoder (``resnet.py:134-155``) -> sigmoid
-    disparities at scales 0..3 (strides 1..8)."""
+    disparities at scales 0..3 (strides 1..8): one head a scale of
+    ``scales``, behind the 10 upconvs in ``decoder``."""
+
+    scales = (0, 1, 2, 3)
+    activation = staticmethod(torch.sigmoid)
 
     def __init__(self, num_ch_enc, num_output_channels=1):
         super().__init__()
@@ -167,20 +172,33 @@ class DepthDecoder(nn.Module):
             convs.append(UpConv(cin, DEC_CHANNELS[i]))
             cin = DEC_CHANNELS[i] + (num_ch_enc[i - 1] if i > 0 else 0)
             convs.append(UpConv(cin, DEC_CHANNELS[i]))
-        convs += [Conv3x3Refl(DEC_CHANNELS[s], num_output_channels) for s in range(4)]
+        convs += [Conv3x3Refl(DEC_CHANNELS[s], num_output_channels) for s in self.scales]
         self.decoder = nn.ModuleList(convs)
 
     def forward(self, features):
+        """The heads' outputs, in the order of ``scales``."""
         x = features[-1]
-        disps = [None] * 4
+        outs = {}
         for j, i in enumerate(range(4, -1, -1)):
             x = F.interpolate(self.decoder[2 * j](x), scale_factor=2, mode='nearest')
             if i > 0:
                 x = torch.cat([x, features[i - 1]], 1)
             x = self.decoder[2 * j + 1](x)
-            if i < 4:
-                disps[i] = torch.sigmoid(self.decoder[10 + i](x))
-        return disps
+            if i in self.scales:
+                outs[i] = self.activation(self.decoder[10 + self.scales.index(i)](x))
+        return [outs[s] for s in self.scales]
+
+
+class RaySurfaceDecoder(DepthDecoder):
+    """The ray-surface decoder (``resnet.py:224-244``, reference
+    ``raysurface_decoder.py``): the depth decoder's upconvs and one 3-channel
+    tanh head at scale 0."""
+
+    scales = (0,)
+    activation = staticmethod(torch.tanh)
+
+    def __init__(self, num_ch_enc):
+        super().__init__(num_ch_enc, num_output_channels=3)
 
 
 def disp_to_depth(disp, min_depth=0.1, max_depth=100.0):
@@ -196,18 +214,41 @@ def _nhwc(t):
 class DepthResNet(nn.Module):
     """monodepth2-style depth network (``resnet.py:165-181``), version
     'XY' with X the layers (18, 34, 50).  ``forward(rgb, input_depth=None,
-    generator=None)`` takes the task's call shape and ignores the LiDAR;
-    training returns 4 inverse depths, eval scale 0 alone."""
+    generator=None, rgb_edge=None)`` takes the task's call and ignores the
+    LiDAR and ``rgb_edge``; training returns 4 inverse depths, eval scale 0
+    alone."""
 
     def __init__(self, version='18'):
         super().__init__()
         self.encoder = ResnetEncoder(int(version[:2]))
         self.decoder = DepthDecoder(self.encoder.num_ch_enc)
 
-    def forward(self, rgb, input_depth=None, generator=None):
-        disps = self.decoder(self.encoder(rgb.permute(0, 3, 1, 2)))
-        inv_depths = [_nhwc(disp_to_depth(d)) for d in disps]
-        return {'inv_depths': inv_depths if self.training else inv_depths[:1]}
+    def _features(self, rgb):
+        return self.encoder(rgb.permute(0, 3, 1, 2))
+
+    def _inv_depths(self, features):
+        inv_depths = [_nhwc(disp_to_depth(d)) for d in self.decoder(features)]
+        return inv_depths if self.training else inv_depths[:1]
+
+    def forward(self, rgb, input_depth=None, generator=None, rgb_edge=None):
+        return {'inv_depths': self._inv_depths(self._features(rgb))}
+
+
+class RaySurfaceResNet(DepthResNet):
+    """ResNet + ray-surface decoder for generic (non-pinhole) cameras
+    (``resnet.py:247-261``, reference ``RaySurfaceResNet.py:35-66``):
+    :class:`DepthResNet`'s output plus ``'ray_surface'`` [B,H,W,3], a
+    tanh per-pixel ray direction (not normalised), in training and at
+    eval."""
+
+    def __init__(self, version='18'):
+        super().__init__(version)
+        self.ray_surf = RaySurfaceDecoder(self.encoder.num_ch_enc)
+
+    def forward(self, rgb, input_depth=None, generator=None, rgb_edge=None):
+        features = self._features(rgb)
+        return {'inv_depths': self._inv_depths(features),
+                'ray_surface': _nhwc(self.ray_surf(features)[0])}
 
 
 class PoseDecoder(nn.Module):

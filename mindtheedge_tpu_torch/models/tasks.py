@@ -1,7 +1,7 @@
 """Task models: counterpart of ``mindtheedge_tpu/models/tasks.py``
 (``TASK_REGISTRY``, ``build_task``, ``build_depth_net``,
 ``build_pose_net`` ``:33-95``; ``BaseTask.run_depth`` / ``run_pose`` /
-``infer`` / the loss pieces ``:180-303``; the training tasks ``:306-558``).
+``infer`` / the loss pieces ``:180-303``; the training tasks ``:306-634``).
 
 A task holds its depth network, an ``nn.Module`` on its device, the pose
 network of the self-supervised losses where ``model.pose_net.name`` names
@@ -26,30 +26,31 @@ the flip-back, the upsampling and any loss; the master weights, their
 gradients and the running statistics stay fp32.  The pose network is not
 cast.
 
-Not ported yet, each raising with its ROADMAP Queue 1 item: the generic
-ray-surface tasks (``GenericSfmModel``, ``GenericSelfSupModel``) and
-``RaySurfaceResNet`` (item 26).
+Every depth network, pose network and task of the JAX package's registries
+builds here (``DEPTH_NET_REGISTRY``, ``POSE_NET_REGISTRY``, ``:52-65``, and
+``TASK_REGISTRY``), the generic ray-surface tasks included.
 """
 
 import torch
 
 from mindtheedge_tpu_torch import resolve_device
 from mindtheedge_tpu_torch.config.defaults import PRECISIONS, checked
+from mindtheedge_tpu_torch.geometry.camera_generic import view_synthesis_generic
 from mindtheedge_tpu_torch.geometry.pose import pose_vec2mat
 from mindtheedge_tpu_torch.losses.grad_loss import grad_loss
-from mindtheedge_tpu_torch.losses.photometric import multiview_photometric_loss
+from mindtheedge_tpu_torch.losses.photometric import (
+    calc_smoothness, multiview_photometric_loss, ssim)
 from mindtheedge_tpu_torch.losses.supervised import supervised_loss
 from mindtheedge_tpu_torch.models import packnet, resnet
 from mindtheedge_tpu_torch.models.model_utils import upsample_output
-from mindtheedge_tpu_torch.models.packnet import PackNetSAN, to_device
+from mindtheedge_tpu_torch.models.packnet import PackNet01, PackNetSAN, PackNetSlim01, to_device
 from mindtheedge_tpu_torch.models.posenet import PoseNet
-from mindtheedge_tpu_torch.models.resnet import DepthResNet, PoseResNet
+from mindtheedge_tpu_torch.models.resnet import DepthResNet, PoseResNet, RaySurfaceResNet
 from mindtheedge_tpu_torch.training.checkpoint import restore_depth_net, restore_pose_net
 from mindtheedge_tpu_torch.utils.depth import depth2inv, inv2depth
-from mindtheedge_tpu_torch.utils.image import flip_lr
+from mindtheedge_tpu_torch.utils.image import flip_lr, match_scales, resize_bilinear
 
 TASK_REGISTRY = {}
-GENERIC_TASKS = ('GenericSfmModel', 'GenericSelfSupModel')
 
 
 def register_task(name):
@@ -65,9 +66,6 @@ def build_task(config, device=None, ckpt=None):
     ``seed + 1``) and then restored from ``ckpt`` where one is given, on
     ``device`` (``None`` -> CUDA), in eval mode."""
     name = config.model.name
-    if name in GENERIC_TASKS:
-        raise NotImplementedError(
-            f'{name}: the generic ray-surface tasks wait for ROADMAP Queue 1 item 26')
     if name not in TASK_REGISTRY:
         raise KeyError(f'Unknown model {name}; known: {sorted(TASK_REGISTRY)}')
     return TASK_REGISTRY[name](config, device, ckpt)
@@ -75,21 +73,20 @@ def build_task(config, device=None, ckpt=None):
 
 def build_depth_net(cfg):
     """The depth network of ``config.model.depth_net`` (``tasks.py:68-87``)."""
+    channels = tuple(cfg.channels) if cfg.get('channels') else None
     if cfg.name in ('PackNetSAN01', 'PackNetSlimEnc01'):  # ckpt-name bypass
-        extra = {'channels': tuple(cfg.channels)} if cfg.get('channels') else {}
+        extra = {'channels': channels} if channels else {}
         return PackNetSAN(version=cfg.version or '1A',
                           input_channels=cfg.input_channels,
                           output_channels=cfg.output_channels,
                           dropout=cfg.dropout or None,
                           remat=cfg.get('remat', False), **extra)
     if cfg.name in ('PackNet01', 'PackNetSlim01'):
-        raise NotImplementedError(
-            f'{cfg.name} waits for ROADMAP Queue 1 item 10')
-    if cfg.name == 'DepthResNet':
-        return DepthResNet(version=cfg.version or '18')
-    if cfg.name == 'RaySurfaceResNet':
-        raise NotImplementedError(
-            'RaySurfaceResNet waits for ROADMAP Queue 1 item 26 (generic tasks)')
+        net = PackNet01 if cfg.name == 'PackNet01' else PackNetSlim01
+        return net(channels, version=cfg.version or '1A', dropout=cfg.dropout or None)
+    if cfg.name in ('DepthResNet', 'RaySurfaceResNet'):
+        net = DepthResNet if cfg.name == 'DepthResNet' else RaySurfaceResNet
+        return net(version=cfg.version or '18')
     raise ValueError(f'Unknown depth network {cfg.name!r}')
 
 
@@ -166,27 +163,36 @@ class BaseTask:
             self.pose_net = to_device(pose, device)
         self.device = device
         # the seams of the spatially sharded step (parallel/spatial.py,
-        # tasks.py:143-155): ``net_input_transform(rgb, lidar)`` -> the
-        # network's inputs, ``output_hook(out)`` -> the output the losses
-        # read; None leaves both as they are
+        # tasks.py:143-155): ``net_input_transform(rgb, lidar, rgb_edge)`` ->
+        # the network's inputs, ``output_hook(out)`` -> the output the
+        # losses read; None leaves both as they are
         self.net_input_transform = None
         self.output_hook = None
+
+    @property
+    def takes_rgb_edge(self):
+        """Whether the depth network reads ``batch['rgb_edge']``: a
+        4-channel PackNet-SAN, in a task whose ``input_keys`` hold it."""
+        return getattr(self.depth_net, 'input_channels', 3) == 4 \
+            and 'rgb_edge' in self.input_keys
 
     def run_depth(self, batch, force_flip=False, train=False, generator=None):
         """Depth net with the lr-flip wrapper (``tasks.py:180-244``).
 
         ``batch['rgb']`` [B,H,W,3] and, if present, ``batch['input_depth']``
-        [B,H,W,1] -> the network's output dict, NHWC.  The network is put
+        [B,H,W,1] -> the network's output dict, NHWC; a 4-channel network
+        also reads ``batch['rgb_edge']`` [B,H,W,1].  The network is put
         into ``train`` mode here.  At eval (no autograd) ``force_flip`` runs
         it on the lr-flipped inputs and flips its outputs back.  In
         training, one Bernoulli(``flip_lr_prob``) draw from ``generator``
         flips the whole batch, on the device; at ``flip_lr_prob`` 0 nothing
-        is drawn.  ``upsample_depth_maps`` then brings every training scale
-        to full resolution.  The 4-channel ``rgb_edge`` input is not ported
-        (the network raises at build for ``input_channels == 4``), so
-        ``rgb_edge`` does not reach the network.  The network computes in
-        ``compute_dtype`` (:meth:`_depth_forward`); what this returns is
-        fp32.  ``net_input_transform`` sees the inputs after the flip, and
+        is drawn.  Only the inverse depths are flipped back: a ray surface
+        comes back as the network computed it, on the flipped input and in
+        ``compute_dtype``, as in the JAX package (``:231-239``).
+        ``upsample_depth_maps`` then brings every training scale to full
+        resolution.  The network computes in ``compute_dtype``
+        (:meth:`_depth_forward`); the inverse depths and ``depth_loss`` come
+        back fp32.  ``net_input_transform`` sees the inputs after the flip, and
         ``output_hook`` the network's outputs before the flip-back: the
         spatial step slices the frame and gathers the pyramid there.
         """
@@ -197,13 +203,13 @@ class BaseTask:
                               generator=generator) < self.flip_lr_prob
         elif not train and force_flip:
             flip = True
-        rgb = _maybe_flip(batch['rgb'], flip)
-        lidar = batch.get('input_depth')
-        lidar = None if lidar is None else _maybe_flip(lidar, flip)
+        inputs = [batch['rgb'], batch.get('input_depth'),
+                  batch.get('rgb_edge') if self.takes_rgb_edge else None]
+        inputs = [None if x is None else _maybe_flip(x, flip) for x in inputs]
         if self.net_input_transform is not None:
-            rgb, lidar = self.net_input_transform(rgb, lidar)
+            inputs = self.net_input_transform(*inputs)
         with torch.set_grad_enabled(train):
-            out = self._depth_forward(rgb, lidar, generator)
+            out = self._depth_forward(*inputs, generator)
             if self.output_hook is not None:
                 out = self.output_hook(out)
             for key in ('inv_depths', 'inv_depths_rgbd'):
@@ -215,7 +221,7 @@ class BaseTask:
                 out = upsample_output(out)
         return out
 
-    def _depth_forward(self, rgb, lidar, generator):
+    def _depth_forward(self, rgb, lidar, rgb_edge, generator):
         """The depth network in ``compute_dtype``.  Below fp32 it runs on
         casts of its fp32 parameters (``torch.func.functional_call``), so
         gradients flow back through the casts to the masters in fp32, and
@@ -223,10 +229,11 @@ class BaseTask:
         module's fp32 buffers (``ops.sparse.MaskedBatchNorm``)."""
         net, dtype = self.depth_net, self.compute_dtype
         if dtype == torch.float32:
-            return net(rgb, lidar, generator)
+            return net(rgb, lidar, generator, rgb_edge)
         cast = lambda t: t.to(dtype) if t is not None and t.dtype == torch.float32 else t
         params = {n: p.to(dtype) for n, p in net.named_parameters()}
-        return torch.func.functional_call(net, params, (cast(rgb), cast(lidar), generator))
+        return torch.func.functional_call(
+            net, params, (cast(rgb), cast(lidar), generator, cast(rgb_edge)))
 
     def run_pose(self, batch):
         """The pose network on ``batch['rgb']`` and ``batch['rgb_context']``
@@ -501,3 +508,78 @@ class VelSupTask(SelfSupTask):
         vel = vel / max(len(poses), 1)
         loss = loss + self.velocity_loss_weight * vel
         return loss, _detached(dict(metrics, velocity_loss=vel, loss=loss))
+
+
+@register_task('GenericSfmModel')
+class GenericSfmTask(SfmTask):
+    """The ray-surface depth (+ pose) container (``tasks.py:561-572``,
+    reference ``models/GenericSfmModel.py``): no loss of its own; the depth
+    network (``RaySurfaceResNet``) returns a per-pixel ray surface beside the
+    inverse depths, and inference passes it through."""
+
+
+@register_task('GenericSelfSupModel')
+class GenericSelfSupTask(GenericSfmTask):
+    """Ray-surface self-supervision (``tasks.py:575-634``, reference
+    ``models/GenericSelfSupModel.py``,
+    ``losses/generic_multiview_photometric_loss.py``): each context image is
+    warped into the target at each of ``num_scales`` scales through the
+    network's ray surface (``geometry/camera_generic.view_synthesis_generic``,
+    patch radius ``min(20, max(2, h // 8))``, temperature annealed by
+    ``progress``), the photometric error (SSIM and L1, or L1 alone at SSIM
+    weight 0) reduced over the contexts (and the unwarped contexts with
+    ``automask_loss``) by ``photometric_reduce_op`` ('mean' or 'min'), plus
+    the edge-aware smoothness."""
+
+    self_supervised = True
+
+    def train_loss(self, batch, generator=None, progress=0.0):
+        return self.losses(batch, self.run_depth(batch, train=True, generator=generator),
+                           progress)
+
+    def _photo(self, warped, image):
+        """The photometric error map (``tasks.py:594-600``)."""
+        pk = self.photometric_kwargs
+        l1 = (warped - image).abs()
+        w = pk['ssim_loss_weight']
+        if w <= 0:
+            return l1
+        s = torch.clamp((1.0 - ssim(warped, image, pk['C1'], pk['C2'])) / 2.0, 0, 1)
+        return w * s.mean(-1, keepdim=True) + (1 - w) * l1.mean(-1, keepdim=True)
+
+    def losses(self, batch, out, progress=0.0):
+        pk = self.photometric_kwargs
+        n = pk['num_scales']
+        poses = self.run_pose(batch)
+        ray_surface, inv_depths = out['ray_surface'], out['inv_depths']
+        images = match_scales(batch['rgb_original'], inv_depths, n)
+        per_scale = [[] for _ in range(n)]
+        for ref_image, pose in zip(batch['rgb_context_original'], poses):
+            ref_images = match_scales(ref_image, inv_depths, n)
+            for i in range(n):
+                h, w = inv_depths[i].shape[1:3]
+                rs = ray_surface if ray_surface.shape[1] == h else \
+                    resize_bilinear(ray_surface, (h, w), align_corners=True)
+                warped = view_synthesis_generic(
+                    ref_images[i], inv2depth(inv_depths[i]), rs, rs, pose,
+                    progress=progress, padding_mode=pk['padding_mode'],
+                    patch_radius=min(20, max(2, h // 8)))
+                per_scale[i].append(self._photo(warped, images[i]))
+                if pk['automask_loss']:
+                    per_scale[i].append(self._photo(ref_images[i], images[i]))
+
+        def reduce(losses):
+            if pk['photometric_reduce_op'] == 'mean':
+                return sum(l.mean() for l in losses) / len(losses)
+            return torch.cat(losses, -1).min(-1).values.mean()
+
+        loss = sum(reduce(per_scale[i]) for i in range(n)) / n
+        metrics = {'photometric_loss': loss}
+        if pk['smooth_loss_weight'] > 0:
+            sx, sy = calc_smoothness(inv_depths, images, n)
+            smooth = sum((sx[i].abs().mean() + sy[i].abs().mean()) / 2 ** i
+                         for i in range(n)) / n
+            smooth = pk['smooth_loss_weight'] * smooth
+            loss = loss + smooth
+            metrics['smoothness_loss'] = smooth
+        return loss, _detached(dict(metrics, loss=loss))

@@ -128,7 +128,9 @@ def make_spatial_train_step(task, space):
     whole frames of this rank's data replica.
 
     The depth net runs on this rank's rows (``task.net_input_transform``
-    slices ``rgb`` and ``input_depth`` after the lr-flip); its inverse-
+    slices ``rgb``, ``input_depth`` and a 4-channel network's ``rgb_edge``
+    after the lr-flip; the losses keep the whole ``rgb_edge``, as JAX's
+    ``slice_local_h`` does, ``spatial.py:264-275``); its inverse-
     depth pyramids are gathered and ``depth_loss`` averaged over the
     replica's blocks (``task.output_hook``), so every loss runs unchanged
     on full frames, on every rank; the pose net reads the full ``rgb`` the
@@ -143,8 +145,8 @@ def make_spatial_train_step(task, space):
         raise NotImplementedError('the spatial training step shards H only, as the '
                                   'JAX package\'s does')
     spatial.shard_network(task.depth_net, space)
-    task.net_input_transform = lambda rgb, lidar: (spatial.shard_spatial(rgb, space),
-                                                   spatial.shard_spatial(lidar, space))
+    task.net_input_transform = lambda *inputs: [spatial.shard_spatial(x, space)
+                                                for x in inputs]
 
     def gather_outputs(out):
         out = dict(out)

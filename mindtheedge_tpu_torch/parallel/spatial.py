@@ -347,7 +347,9 @@ def group_norm(x, num_groups, weight, bias, eps, space):
 def shard_network(net, space):
     """Set ``space`` on every block of ``net`` that takes one (None: the
     plain network again) -> ``net``.  Parameters and buffers do not change.
-    Raises for a network without spatial support (``spatial.py:260-261``)."""
+    The PackNet networks (PackNet-SAN, ``PackNet01``, ``PackNetSlim01``)
+    are built of such blocks; a network without any (the ResNets, as in
+    the JAX package) raises (``spatial.py:260-261``)."""
     blocks = [m for m in net.modules() if hasattr(m, 'space')]
     if not blocks:
         raise ValueError(f'{type(net).__name__} has no spatial support')
@@ -357,16 +359,17 @@ def shard_network(net, space):
 
 
 def make_spatial_infer(net, space, with_depth=False):
-    """The sharded eval forward of a PackNet-SAN (``spatial.py:179-200``):
+    """The sharded eval forward of a PackNet network (``spatial.py:179-200``):
     ``net`` is switched to ``space`` here (:func:`shard_network`).  Returns
-    ``fn(rgb[, input_depth]) -> inv_depths``, this rank's blocks in
-    (:func:`shard_spatial`) and out, NHWC."""
+    ``fn(rgb[, input_depth][, rgb_edge]) -> inv_depths``, this rank's blocks
+    in (:func:`shard_spatial`) and out, NHWC; a 4-channel network's scale 0
+    is multiplied by the block's ``rgb_edge`` rows."""
     shard_network(net, space)
 
     @torch.no_grad()
-    def infer(rgb, input_depth=None):
+    def infer(rgb, input_depth=None, rgb_edge=None):
         if (input_depth is not None) != with_depth:
             raise ValueError(f'made with with_depth={with_depth}')
-        return net.eval()(rgb, input_depth)['inv_depths']
+        return net.eval()(rgb, input_depth, rgb_edge=rgb_edge)['inv_depths']
 
     return infer

@@ -47,7 +47,7 @@ import torch
 
 from mindtheedge_tpu_torch.parallel.distributed import barrier, is_main_process
 from mindtheedge_tpu_torch.utils.weights import (
-    pose_state_dict_from_jax, resnet_state_dict_from_jax, state_dict_from_jax)
+    depth_state_dict_from_jax, pose_state_dict_from_jax)
 
 _BUILTINS = frozenset((
     'bool', 'bytearray', 'bytes', 'complex', 'dict', 'float', 'frozenset',
@@ -124,11 +124,8 @@ def depth_state_dict(ckpt):
     """The depth network's weights in a checkpoint of either format, under
     the port's (reference PackNetSAN01 or monodepth2) names."""
     if _is_flax(ckpt):                          # (a) flax trees
-        tree = ckpt['state_dict']['depth']
-        stats = (ckpt.get('batch_stats') or {}).get('depth')
-        if 'mconvs' in tree:
-            return state_dict_from_jax(tree, stats)
-        return resnet_state_dict_from_jax(tree, stats)
+        return depth_state_dict_from_jax(ckpt['state_dict']['depth'],
+                                         (ckpt.get('batch_stats') or {}).get('depth'))
     depth, _ = split_state_dict(ckpt['state_dict'])
     return {k: torch.as_tensor(v) for k, v in strip_prefix(depth).items()}
 

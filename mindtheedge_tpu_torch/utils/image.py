@@ -47,8 +47,8 @@ def resize_nearest(x, shape):
     return x.index_select(1, iy).index_select(2, ix)
 
 
-def _linear_weights(out_size, in_size, align_corners, device):
-    pos = torch.arange(out_size, dtype=torch.float32, device=device)
+def _linear_weights(out_size, in_size, align_corners, device, dtype=torch.float32):
+    pos = torch.arange(out_size, dtype=dtype, device=device)
     if align_corners and out_size > 1:
         src = pos * ((in_size - 1) / (out_size - 1))
     else:
@@ -61,11 +61,12 @@ def _linear_weights(out_size, in_size, align_corners, device):
 
 def resize_bilinear(x, shape, align_corners=False):
     """torch ``F.interpolate(mode='bilinear')`` on [B,H,W,C], both align
-    modes, computed in fp32."""
+    modes, computed in fp32 (fp64 for fp64 input)."""
     h, w = int(shape[0]), int(shape[1])
-    y_lo, y_hi, fy = _linear_weights(h, x.shape[1], align_corners, x.device)
-    x_lo, x_hi, fx = _linear_weights(w, x.shape[2], align_corners, x.device)
-    xf = x.float()
+    dtype = torch.promote_types(x.dtype, torch.float32)
+    y_lo, y_hi, fy = _linear_weights(h, x.shape[1], align_corners, x.device, dtype)
+    x_lo, x_hi, fx = _linear_weights(w, x.shape[2], align_corners, x.device, dtype)
+    xf = x.to(dtype)
     top, bot = xf.index_select(1, y_lo), xf.index_select(1, y_hi)
     rows = top + (bot - top) * fy[None, :, None, None]
     left, right = rows.index_select(2, x_lo), rows.index_select(2, x_hi)

@@ -2,9 +2,11 @@
 
 The counterpart of ``mindtheedge_tpu/utils/torch_port.py``, running the
 other way: ``state_dict_from_jax(params, batch_stats)`` takes the JAX
-package's PackNetSAN ``params`` and ``batch_stats`` trees (nested dicts of
-numpy arrays) and returns the port's ``state_dict`` with the reference
-PackNetSAN01 names.  Layouts:
+package's PackNetSAN, PackNet01 or PackNetSlim01 ``params`` and
+``batch_stats`` trees (nested dicts of numpy arrays) and returns the port's
+``state_dict`` with the reference PackNetSAN01 names.  Every width comes
+from the tree's kernels: a 4-channel ``pre_calc`` and version B's
+narrower iconvs need nothing of their own.  Layouts:
 
 * conv kernel [kh,kw,I,O]  -> weight [O,I,kh,kw]
 * conv3d kernel [3,3,3,1,d] -> weight [d,1,3,3,3]
@@ -12,10 +14,12 @@ PackNetSAN01 names.  Layouts:
 * MaskedBatchNorm          -> bn.weight/bias/running_mean/running_var
 * SAN kernel [kh,kw,I,O]   -> [K^2,I,O], first (row) coordinate fastest
 
-``pose_state_dict_from_jax`` and ``resnet_state_dict_from_jax`` do the
-same for ``PoseNet``, ``PoseResNet`` and ``DepthResNet``, whose flax
+``pose_state_dict_from_jax``, ``resnet_state_dict_from_jax`` and
+``raysurface_state_dict_from_jax`` do the same for ``PoseNet``,
+``PoseResNet``, ``DepthResNet`` and ``RaySurfaceResNet``, whose flax
 BatchNorm ``scale/bias/mean/var`` become ``weight/bias/running_mean/
-running_var``.
+running_var``.  ``depth_state_dict_from_jax`` picks the converter of a
+depth network's tree.
 """
 
 import numpy as np
@@ -111,8 +115,11 @@ def sparse_encoder(sd, name, p, stats):
 
 
 def state_dict_from_jax(params, batch_stats=None):
-    """JAX PackNetSAN ``params`` and ``batch_stats`` -> port ``state_dict``.
-    Without ``batch_stats`` the SAN running statistics are left out."""
+    """JAX PackNetSAN, PackNet01 or PackNetSlim01 ``params`` and
+    ``batch_stats`` -> port ``state_dict``.  Without ``batch_stats`` the SAN
+    running statistics are left out; a tree without ``mconvs`` (PackNet01,
+    PackNetSlim01) has neither the SAN ladder nor the fusion ``weight`` /
+    ``bias``."""
     sd = {}
     enc, dec = params['encoder'], params['decoder']
     conv_block(sd, 'encoder.pre_calc', enc['pre_calc'])
@@ -125,10 +132,11 @@ def state_dict_from_jax(params, batch_stats=None):
         conv_block(sd, f'decoder.iconv{i}', dec[f'iconv{i}'])
     for i in range(1, 5):
         conv(sd, f'decoder.disp{i}_layer.conv1', dec[f'disp{i}_layer']['conv1'])
-    sparse_encoder(sd, 'mconvs', params['mconvs'],
-                   None if batch_stats is None else batch_stats['mconvs'])
-    sd['weight'] = _t(params['weight'])
-    sd['bias'] = _t(params['bias'])
+    if 'mconvs' in params:
+        sparse_encoder(sd, 'mconvs', params['mconvs'],
+                       None if batch_stats is None else batch_stats['mconvs'])
+        sd['weight'] = _t(params['weight'])
+        sd['bias'] = _t(params['bias'])
     return sd
 
 
@@ -177,12 +185,40 @@ def resnet_state_dict_from_jax(params, batch_stats=None):
         for j, key in enumerate(('squeeze_0', 'pose_0', 'pose_1', 'pose_2')):
             conv(sd, f'decoder.net.{j}', dec[key])
         return sd
+    depth_decoder(sd, 'decoder', dec, [f'dispconv_{s}' for s in range(4)])
+    return sd
+
+
+def depth_decoder(sd, name, p, heads):
+    """monodepth2 DepthDecoder or RaySurfaceDecoder {upconv_{i}_{k},
+    heads...} -> ``{name}.decoder.{j}``: the upconvs 4,0 ... 0,1, then the
+    heads in order."""
     for j, i in enumerate(range(4, -1, -1)):
         for k in (0, 1):
-            conv(sd, f'decoder.decoder.{2 * j + k}.conv.conv', dec[f'upconv_{i}_{k}']['conv'])
-    for s in range(4):
-        conv(sd, f'decoder.decoder.{10 + s}.conv', dec[f'dispconv_{s}']['conv'])
+            conv(sd, f'{name}.decoder.{2 * j + k}.conv.conv', p[f'upconv_{i}_{k}']['conv'])
+    for s, head in enumerate(heads):
+        conv(sd, f'{name}.decoder.{10 + s}.conv', p[head]['conv'])
+
+
+def raysurface_state_dict_from_jax(params, batch_stats=None):
+    """JAX ``RaySurfaceResNet`` ``params`` (+ ``batch_stats``) -> the port's
+    ``state_dict``: the encoder and the depth decoder as
+    :func:`resnet_state_dict_from_jax`, the ray-surface decoder under
+    ``ray_surf`` (reference ``RaySurfaceResNet.py``)."""
+    sd = resnet_state_dict_from_jax(params, batch_stats)
+    depth_decoder(sd, 'ray_surf', params['ray_surf'], ['raysurfconv_0'])
     return sd
+
+
+def depth_state_dict_from_jax(params, batch_stats=None):
+    """Any JAX depth network's ``params`` (+ ``batch_stats``) -> the port's
+    ``state_dict``, by the tree's shape: PackNet (a ``pre_calc`` stem),
+    ``RaySurfaceResNet`` (a ``ray_surf`` decoder) or ``DepthResNet``."""
+    if 'pre_calc' in params['encoder']:
+        return state_dict_from_jax(params, batch_stats)
+    if 'ray_surf' in params:
+        return raysurface_state_dict_from_jax(params, batch_stats)
+    return resnet_state_dict_from_jax(params, batch_stats)
 
 
 def pose_state_dict_from_jax(params, batch_stats=None):

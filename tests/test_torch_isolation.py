@@ -31,7 +31,8 @@ def _import_all_with_blocked(blocked):
                  'models.model_utils', 'utils.image', 'utils.profiling',
                  'utils.wandb_logger', 'data.datasets', 'data.loader',
                  'data.transforms', 'evaluation.edge_metrics', 'evaluation.chamfer',
-                 'geometry.pose', 'geometry.camera', 'losses.photometric',
+                 'geometry.pose', 'geometry.camera', 'geometry.camera_generic',
+                 'losses.photometric',
                  'models.posenet', 'models.resnet', 'data.kitti_dataset',
                  'data.kitti_utils', 'evaluation.bsds_matcher', 'evaluation.edge_auc',
                  'evaluation.d3r', 'evaluation.depth_analyzer', 'cli.eval_depth',

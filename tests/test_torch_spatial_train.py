@@ -20,7 +20,7 @@ work.
   reruns the halo exchanges and reductions in one order on every rank).
 * ``SemiSupModel`` at ``supervised_loss_weight`` 0.5 with ``PoseNet``
   (the photometric loss over two contexts beside the supervised term) and
-  PackNet-SAN 1A (``PackNetSlim01`` is not ported, ROADMAP item 10), [2,64,96],
+  PackNet-SAN 1A, [2,64,96],
   on 2 ranks, H over 2: the loss rtol 1e-5; the parameters after an SGD
   step of lr 0.01 rtol 1e-4 / atol 1e-5 (``test_spatial_selfsup.py``'s),
   and the gradients of both networks as ``tests/test_torch_train_selfsup.py``

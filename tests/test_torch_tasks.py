@@ -133,22 +133,32 @@ def test_lidar_divided_by_200_once(pair):
 
 
 def test_unported_options_raise():
+    """Every option of the JAX package's registries builds, and nothing is
+    refused as unported any more: the 4-channel input, version 1B,
+    ``PackNet01`` / ``PackNetSlim01``, ``RaySurfaceResNet`` and the generic
+    tasks.  An unknown model still raises a KeyError, and the photometric
+    loss without a pose network a ValueError before any work."""
     cfg = config.get_cfg_defaults()
     cfg.merge_from_other_cfg(model_config('SemiSupEdgeModel').to_dict())
-    for key, value, item in (('model.depth_net.input_channels', 4, 'item 10'),
-                             ('model.depth_net.version', '1B', 'item 10'),
-                             ('model.depth_net.name', 'PackNet01', 'item 10')):
-        bad = cfg.clone()
-        bad.merge_from_list([key, value])
-        with pytest.raises(NotImplementedError, match=item):
-            tasks.build_task(bad, device='cpu')
-    for key, value in (('model.name', 'GenericSfmModel'),
-                       ('model.name', 'GenericSelfSupModel'),
-                       ('model.depth_net.name', 'RaySurfaceResNet')):
-        bad = cfg.clone()
-        bad.merge_from_list([key, value])
-        with pytest.raises(NotImplementedError, match='item 26'):
-            tasks.build_task(bad, device='cpu')
+    for changes in ((('model.depth_net.input_channels', 4),),
+                    (('model.depth_net.version', '1B'),),
+                    (('model.depth_net.name', 'PackNet01'),),
+                    (('model.depth_net.name', 'PackNetSlim01'), ('model.depth_net.channels', ())),
+                    (('model.depth_net.name', 'RaySurfaceResNet'),
+                     ('model.depth_net.version', '')),
+                    (('model.name', 'GenericSfmModel'),
+                     ('model.depth_net.name', 'RaySurfaceResNet'),
+                     ('model.depth_net.version', '')),
+                    (('model.name', 'GenericSelfSupModel'),
+                     ('model.depth_net.name', 'RaySurfaceResNet'),
+                     ('model.depth_net.version', ''), ('model.pose_net.name', 'PoseNet'))):
+        ok = cfg.clone()
+        for key, value in changes:
+            ok.merge_from_list([key, value])
+        task = tasks.build_task(ok, device='cpu')
+        assert type(task) is tasks.TASK_REGISTRY[ok.model.name]
+        assert type(task.depth_net).__name__ == {
+            'PackNetSAN01': 'PackNetSAN'}.get(ok.model.depth_net.name, ok.model.depth_net.name)
     bad = cfg.clone()
     bad.model.name = 'NoSuchModel'
     with pytest.raises(KeyError, match='SelfSupModel'):
@@ -160,6 +170,22 @@ def test_unported_options_raise():
     dee = cfg.clone()
     dee.model.name = 'EdgeEstimationLIDARModel'
     tasks.build_task(dee, device='cpu').check_trainable()
+
+
+def test_registries_match_the_jax_package():
+    """The port builds every name of the JAX package's ``TASK_REGISTRY``,
+    ``DEPTH_NET_REGISTRY`` and ``POSE_NET_REGISTRY``, each depth network as
+    the class the JAX registry names (``PackNetSlimEnc01`` is PackNet-SAN,
+    the checkpoint-name bypass)."""
+    assert set(tasks.TASK_REGISTRY) == set(jtasks.TASK_REGISTRY)
+    for name, jcls in jtasks.DEPTH_NET_REGISTRY.items():
+        node = config.get_cfg_defaults().model.depth_net
+        node.name = name
+        assert type(tasks.build_depth_net(node)).__name__ == jcls.__name__, name
+    for name in jtasks.POSE_NET_REGISTRY:
+        node = config.get_cfg_defaults().model.pose_net
+        node.name = name
+        assert type(tasks.build_pose_net(node)).__name__ == name
 
 
 def test_precision_and_remat_choices():

@@ -236,15 +236,15 @@ TASKS = {   # the tasks of phase 8a: (config, batch, noise floor)
 }
 
 
-def train_step_card_vs_cpu(dev, channels=(16,) * 6, shape=(2, 64, 96), task=None):
+def train_step_card_vs_cpu(dev, channels=(16,) * 6, shape=(2, 64, 96), task=None, spec=None):
     """One ``train_step`` of the same seeded task and batch on ``dev`` and
     on the CPU -> (the CPU's and the card's loss, the worst ratios).
     ``task`` None is the paper's ``SemiSupEdgeModel``, else a key of
-    ``TASKS``."""
-    if task is None:
+    ``TASKS``; ``spec`` a (config, batch, noise floor) triple as theirs."""
+    if task is None and spec is None:
         cfg, make_batch, floor = train_config(channels), synthetic_batch, 0.0
     else:
-        make_cfg, make_batch, floor = TASKS[task]
+        make_cfg, make_batch, floor = spec or TASKS[task]
         cfg = make_cfg()
     host_task = build_task(cfg, device='cpu')
     card_task = build_task(cfg, device=dev)

@@ -27,7 +27,7 @@ from mindtheedge_tpu_torch import config
 from mindtheedge_tpu_torch.models import tasks
 from mindtheedge_tpu_torch.training.train_step import create_train_state
 from mindtheedge_tpu_torch.utils.weights import (
-    pose_state_dict_from_jax, resnet_state_dict_from_jax, state_dict_from_jax)
+    depth_state_dict_from_jax, pose_state_dict_from_jax)
 from tests.test_torch_blocks import perturb
 from tests.test_torch_geometry import intrinsics
 from tests.test_torch_train_cuda import smooth_images
@@ -138,8 +138,7 @@ def jax_variables(jcfg, batch, seed=0):
 
 
 def depth_sd(tree, stats=None):
-    return state_dict_from_jax(tree, stats) if 'mconvs' in tree \
-        else resnet_state_dict_from_jax(tree, stats)
+    return depth_state_dict_from_jax(tree, stats)
 
 
 def port_task(jcfg, variables):
@@ -191,24 +190,27 @@ def assert_stats_close(task, params, new_stats):
                                        msg=lambda m, name=name: f'{name}: {m}')
 
 
-def check_train_loss(jcfg, batch, metric_keys):
+def check_train_loss(jcfg, batch, metric_keys, progress=0.0):
     """One ``train_loss`` + backward of the port against
-    ``jax.value_and_grad`` of the JAX task's: loss, metrics, gradients of
-    both networks, and the running statistics the forward updates."""
+    ``jax.value_and_grad`` of the JAX task's, at training ``progress``:
+    loss, metrics, gradients of both networks, and the running statistics
+    the forward updates."""
     jtask = jtasks.build_task(jcfg)
     variables = jax_variables(jcfg, batch)
     jbatch = jax.tree_util.tree_map(jnp.asarray, batch)
 
     def loss_fn(params):
         v = {net: dict(variables[net], params=p) for net, p in params.items()}
-        loss, (metrics, _, new_stats) = jtask.train_loss(v, jbatch, jax.random.PRNGKey(5))
+        loss, (metrics, _, new_stats) = jtask.train_loss(v, jbatch, jax.random.PRNGKey(5),
+                                                         progress)
         return loss, (metrics, new_stats)
 
     params = {net: v['params'] for net, v in variables.items()}
     (want, (want_metrics, new_stats)), want_grads = jax.jit(jax.value_and_grad(
         loss_fn, has_aux=True))(params)
     task = port_task(jcfg, variables)
-    loss, metrics = task.train_loss(to_torch(batch), torch.Generator().manual_seed(5))
+    loss, metrics = task.train_loss(to_torch(batch), torch.Generator().manual_seed(5),
+                                    progress)
     if loss.requires_grad:
         loss.backward()
     np.testing.assert_allclose(float(loss.detach()), float(want), rtol=1e-4)
