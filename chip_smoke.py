@@ -16,7 +16,8 @@ Run from the repository root, on a machine with one CUDA card and nvcc.
    the card and on the CPU with the same weights, both built by
    ``serve.build``: all 4 scales at rtol 1e-4, atol 1e-5 (fp32, TF32 off,
    as ``models.packnet.to_device`` sets it; no phase sets a backend flag
-   of its own).
+   of its own but the spawned ranks of 11-12, whose autotuner times fewer
+   candidates).
    Then ``annotate_batch`` of the DEE path, card vs CPU on the same
    network and inputs: edge maps within 1e-4 on >= 99.9 % of pixels per
    scale,
@@ -142,7 +143,8 @@ Run from the repository root, on a machine with one CUDA card and nvcc.
       steps); one all-reduce of gradients shaped like the network's alone,
       by CUDA events.
    b. Two spawned ranks over gloo on the one card (``device='cuda:0'``
-      each; ``tests/test_torch_dp_cuda.oracle_job``): one data-parallel
+      each; ``tests/test_torch_dp_cuda.oracle_job``; the pair of ranks of
+      12b and 12c, whose jobs run after it): one data-parallel
       step at [2 per rank, 64, 96], (16,)*6, against rank 0's oracle (the
       mean of the two ranks' plain steps on the card) within 7a's
       tolerances, both ranks' parameters bit-equal; then 3 full-width steps
@@ -150,7 +152,8 @@ Run from the repository root, on a machine with one CUDA card and nvcc.
       one all-reduce alone: gloo reduces the card's tensors through the
       host, so these are no speed figure for NCCL.
    c. ``python -m torch.distributed.run --standalone --nproc_per_node 1``
-      of ``cli.train_edges`` on 7c's split resized to 96x320, 1 epoch
+      (beside d's launcher, both at once) of ``cli.train_edges`` on 7c's
+      split resized to 96x320, 1 epoch
       without validation (a fresh process autotunes every conv shape,
       about a minute at full width): the group comes up (NCCL, world 1),
       the checkpoint and ``metrics.jsonl`` are written.
@@ -158,6 +161,12 @@ Run from the repository root, on a machine with one CUDA card and nvcc.
       first 8 frames of phase 9's split: every depth within one u16 code
       of phase 9's files (both fresh processes, same weights; cuDNN's
       autotuner may pick other algorithms, so not byte-equal).
+   e. ``make_sharded_train_step`` in the pair of ranks of 11b (job
+      ``tests/test_torch_dp_cuda.sharded_step_job``): 7b's config with
+      ``flip_lr_prob`` 0, a global batch of 4 at 384x1280 (2 a rank), one
+      step against the plain card step on the global batch from the same
+      weights and generator (12b's bounds), then 3 timed steps: ms and
+      peak a rank.
 
 12. Spatial sharding with halo exchange (``parallel/spatial.py``; no kernel
    on these paths: the NMS kernel must launch 0 times).
@@ -175,14 +184,29 @@ Run from the repository root, on a machine with one CUDA card and nvcc.
       0 (batch 3, 384x1280, fp32) against the plain card step from the same
       weights, batch and generator (loss rtol 1e-5, every gradient within
       1e-4 of its tensor's largest, running statistics rtol 1e-4), and 3
-      timed steps: ms per step and peak memory per rank.
+      timed steps: ms per step and peak memory per rank.  Then the same in
+      bf16 (``serve.build(dtype=torch.bfloat16)``, the config at
+      ``arch.precision: bfloat16``) against the unsharded bf16 forward and
+      step on the card: the inverse depths' relative error (median, max),
+      the loss and each gradient and running-statistics tensor's worst
+      error over its largest (median, max over the tensors) within
+      ``BAND`` (2) times the card's own bf16-vs-fp32 gap on the same
+      inputs.  The ranks first report which gloo collectives take bf16
+      tensors on the card.
    c. ``cli.infer_edges --spatial 2 --wire f32`` in the same two ranks
       (``main(argv, device='cuda:0')``) on 2 synthetic frames at DDAD-DE's
       1216x1936 with ``configs/eval_ddad_de.yaml``'s model block, its
       split and output folder replaced and the frames resized to 1216x1920
       (5 pack levels need a multiple of 32; 1936 is not): every depth map
       within rtol 1e-4, atol 1e-5 of the unsharded CLI's on the card;
-      wall seconds of both.
+      wall seconds of both.  Then the same at ``arch.precision:
+      bfloat16``: the depth's relative error against the unsharded bf16
+      CLI within ``BAND`` times that CLI's own bf16-vs-fp32 gap.
+   11b, 11e, 12b and 12c run as jobs of one pair of spawned ranks (one
+   ``start_ranks`` call), each job counting its own NMS launches; cuDNN's
+   autotuner there times 3 candidates a conv (``PAIR_CUDNN_LIMIT``).  The
+   unsharded CLIs of 12c run first in this process, the other oracles
+   while the ranks start.
 13. The depth networks and tasks beside PackNet-SAN 1A
    (``tests/test_torch_variants_cuda.py``; no kernel on these paths: the
    NMS kernel must launch 0 times).
@@ -199,6 +223,8 @@ Run from the repository root, on a machine with one CUDA card and nvcc.
       ill-conditioned in fp32 on any device, near-ties of the soft argmax
       and coordinates on pixel centres, where the sampler's derivative
       jumps, part two devices' roundings).
+      The step's gradients are also printed against the CPU's fp64 ones,
+      and a second card step against the first (ROADMAP L4).
       Then ROADMAP L2: the seeded (16,)*6 network on blocky frames
       [4,128,128], ``F.group_norm`` and the two-pass statistics each
       against fp64 on the card.
@@ -213,6 +239,11 @@ Run from the repository root, on a machine with one CUDA card and nvcc.
    d. ``GenericSelfSupModel`` on 8c's batch cut to 2 images: 1 warm-up and
       3 timed steps, ms and peak memory; then ``project_generic``'s
       forward time inside one step, by CUDA events around each call.
+14. ``ops/canny.canny_sweep`` (plain PyTorch, no kernel: the NMS kernel
+   must launch 0 times) on [4,375,1242] uint8-range noisy blocky scenes
+   at the edge-AUC protocol's 12 thresholds (t/2, t) on the card against
+   the CPU: >= 99.99 % of pixels agree (``atan2`` buckets may part at a
+   boundary); ms a sweep by CUDA events, dilation steps, host checks.
 
 Prints one line per phase, each phase's wall time, then the card's name
 and power limit, a JSON line of the kernels, and as its last line
@@ -248,19 +279,23 @@ from mindtheedge_tpu_torch.training.checkpoint import load_checkpoint
 from mindtheedge_tpu_torch.training.experiment import Experiment
 from mindtheedge_tpu_torch.training.train_step import create_train_state, make_train_step
 from mindtheedge_tpu_torch.utils.depth import inv2depth
+from tests.test_torch_canny_cuda import SWEEP as CANNY_SWEEP, canny_card_vs_cpu
 from tests.test_torch_annotate_cuda import (
     annotate_card_vs_cpu, random_frames, task_config)
-from tests.test_torch_dp_cuda import dp_vs_plain, oracle_gaps, oracle_job, start_ranks
-from tests.test_torch_spatial_cuda import card_pair_job, cli_job, forward_gap, step_gaps
+from tests.test_torch_dp_cuda import (
+    dp_vs_plain, oracle_gaps, oracle_job, sharded_step_job, start_ranks)
+from tests.test_torch_spatial_cuda import (
+    card_pair_job, cli_job, forward_gap, gloo_dtype_job, step_gaps)
 from tests.test_torch_train_cuda import write_kitti_tree
 from tests.test_torch_variants_cuda import (
-    EVAL_CASES, PACKNET01_SELFSUP, camera_generic_card_vs_fp64, eval_card_vs_cpu,
+    EVAL_CASES, GENERIC_STEP_BAND, PACKNET01_SELFSUP, camera_generic_card_vs_fp64,
+    eval_card_vs_cpu,
     generic_step_card_vs_cpu, group_norm_fp64_gaps, patch_logits_card_vs_cpu)
 from tests.test_torch_nms_kernel import dyadic_patch, gaussian_blur, misaligned
 from tests.test_torch_train_cuda import (
     BAND, GRAD_RTOL, PHOTOMETRIC_BOUND, TASKS, bf16_card_vs_cpu, kitti_intrinsics,
     photometric_card_vs_cpu, photometric_gap_causes, remat_config, remat_vs_plain,
-    step_outcome, synthetic_batch, train_step_card_vs_cpu)
+    step_outcome, synthetic_batch, tensor_errs, train_step_card_vs_cpu)
 
 KERNELS = ('nms_kernel',)
 B, H, W = 4, 384, 1280
@@ -296,6 +331,14 @@ DDAD_CONFIG = 'configs/eval_ddad_de.yaml'
 DDAD_H, DDAD_W = 1216, 1936             # DDAD-DE's frames
 DDAD_SHAPE = (1216, 1920)               # rounded down to a multiple of 32
 DDAD_FRAMES = 2
+SHARDED_B, SHARDED_STEPS = 4, 3        # 11e: the global batch, 2 a rank; timed steps
+PAIR_WAIT_S = 900                       # the rank pair's jobs of phases 11 and 12, all told
+# The pair's two fresh processes autotune every conv shape of their jobs at
+# once on the one card: its jobs took 461.9 s timing PyTorch's default of
+# 10 cuDNN candidates a conv, 253.1 s timing 3 (NVIDIA H100 80GB HBM3,
+# 700 W).  Their steps are held to oracles; their times are no speed figure.
+PAIR_CUDNN_LIMIT = 3
+CANNY_SHAPE = (4, 375, 1242)            # 14: KITTI-size images, uint8 range
 VARIANTS_DIR = 'build/variants_smoke'
 EDGE_FRAMES = 8                         # 13b: KITTI-size frames with an rgb_edge column
 
@@ -786,14 +829,14 @@ def blocky_scene(rng, b, h, w, dev):
     return depth
 
 
-def full_width_batch(dev, seed=0):
+def full_width_batch(dev, seed=0, b=TRAIN_B):
     """A seeded synthetic training batch made on the card, NHWC: RGB shaded
     by depth, LiDAR 95 % sparse, GT 75 % sparse, and at each of the 4
     scales the depth edges (a step to the right or below) and the normals
     (the Sobel-5 angle of the scene, as the DEE annotation decodes it)."""
     rng = np.random.RandomState(seed)
     gen = torch.Generator(dev).manual_seed(seed)
-    b, h, w = TRAIN_B, H, W
+    h, w = H, W
     depth = blocky_scene(rng, b, h, w, dev)
     shade = (depth / 40.0)[..., None]
     batch = {'rgb': torch.clamp(shade + 0.2 * torch.rand(b, h, w, 3, device=dev,
@@ -1347,65 +1390,60 @@ def phase_dp_nccl(dev, losses7b):
     return nms_kernel.launches
 
 
-def phase_dp_gloo(dev):
-    """11b: two spawned ranks over gloo sharing the card."""
-    os.makedirs(DP_DIR, exist_ok=True)
-    config = os.path.join(DP_DIR, 'train_fp32.yaml')
-    train_config().save_yaml(config)
-    batch = os.path.join(DP_DIR, 'batch.pt')
-    torch.save({k: v.cpu() for k, v in full_width_batch(dev).items()}, batch)
-    ranks = start_ranks([(oracle_job, {'device': 'cuda:0', 'full_config': config,
-                                       'full_batch': batch})], 2, os.path.join(DP_DIR, 'gloo'),
-                        threads=max(os.cpu_count() // 2, 1))
-    results = ranks.result(0)
-    gaps = oracle_gaps(results)
-    print(f'phase 11b 2 ranks over gloo on one card, [2 per rank,64,96] (16,)*6: one '
-          f'data-parallel step against rank 0\'s oracle (the mean of both ranks\' plain '
-          f'steps on the card): loss {gaps["loss"]:.3e}, worst gradient '
-          f'{gaps["grad"]:.3e} of its tensor\'s largest (bound {GRAD_RTOL:g}), running '
-          f'statistics {gaps["stats"]:.3e} (rtol 1e-4); both ranks\' parameters and '
-          f'buffers bit-equal')
-    for r, res in enumerate(results):
-        full = res['full']
-        check(all(np.isfinite(full['losses'])), f'11b rank {r} losses {full["losses"]}')
-        print(f'phase 11b rank {r}, full width {H}x{W} b{TRAIN_B} fp32, '
-              f'{full["parameters"]} parameters, gloo through the host (no NCCL speed '
-              f'figure), both ranks on one card: {len(full["ms"])} steps after 1 warm-up, '
-              + ', '.join(f'{m:.3f}' for m in full['ms'])
-              + f' ms by CUDA events, peak {full["peak"] / 2**30:.3f} GiB; one gradient '
-              f'all-reduce alone {full["all_reduce_ms"]:.3f} ms (host clock); losses '
-              + ', '.join(f'{v:.6f}' for v in full['losses']))
-
-
-def launched(module, *argv):
-    """``python -m torch.distributed.run --standalone --nproc_per_node 1``
-    of the CLI ``module`` under :data:`CLI_RUNNER` -> (its output, wall
-    seconds, the NMS kernel's launches)."""
+def launch(module, *argv):
+    """Start ``python -m torch.distributed.run --standalone
+    --nproc_per_node 1`` of the CLI ``module`` under :data:`CLI_RUNNER`;
+    :func:`launched` waits for it."""
     runner = os.path.abspath(os.path.join(DP_DIR, 'run_cli.py'))
-    with open(runner, 'w') as f:
+    with open(runner + '.tmp', 'w') as f:
         f.write(CLI_RUNNER)
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, '-m', 'torch.distributed.run', '--standalone',
-         '--nproc_per_node', '1', runner, module, *argv],
-        capture_output=True, text=True, timeout=600,
-        env=dict(os.environ, PYTHONPATH=os.getcwd()))
+    os.replace(runner + '.tmp', runner)     # another launcher may be reading it
+    logs = [os.path.join(DP_DIR, module.rsplit('.', 1)[-1] + ext) for ext in ('.log', '.err')]
+    with open(logs[0], 'w') as out, open(logs[1], 'w') as err:
+        proc = subprocess.Popen(
+            [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+             '--nproc_per_node', '1', runner, module, *argv],
+            stdout=out, stderr=err, env=dict(os.environ, PYTHONPATH=os.getcwd()))
+    return module, proc, time.perf_counter(), logs
+
+
+def launched(started):
+    """Wait for a :func:`launch` -> (its output, wall seconds, the NMS
+    kernel's launches)."""
+    module, proc, t0, logs = started
+    try:
+        proc.wait(600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
     wall = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    with open(os.path.join(DP_DIR, module.rsplit('.', 1)[-1] + '.log'), 'w') as f:
-        f.write(log)
+    stdout, stderr = (open(path).read() for path in logs)
+    log = stdout + stderr
     check(proc.returncode == 0, f'{module} under torch.distributed.run exited '
           f'{proc.returncode}: {log[-3000:]}')
-    found = re.search(r'NMS launches (\d+)', proc.stdout)
+    found = re.search(r'NMS launches (\d+)', stdout)
     check(found is not None, f'{module}: no launch count printed')
-    check('Distributed: process 0 of 1, backend nccl, device cuda:0' in proc.stdout,
+    check('Distributed: process 0 of 1, backend nccl, device cuda:0' in stdout,
           f'{module}: the process group did not come up over NCCL: {log[-3000:]}')
-    return proc.stdout, wall, int(found.group(1))
+    return stdout, wall, int(found.group(1))
 
 
-def phase_dp_train_cli():
-    """11c: ``cli.train_edges`` under the launcher on 7c's split -> the NMS
-    kernel's launches."""
+def phase_dp_clis():
+    """11c and 11d, their two launchers at once (each a fresh process that
+    spends most of its wall starting up) -> {'11c', '11d': NMS launches}."""
+    train, infer = dp_train_cli_start(), dp_infer_cli_start()
+    try:
+        return {'11c': dp_train_cli_end(train), '11d': dp_infer_cli_end(infer)}
+    finally:
+        for _, (_, proc, _, _) in (train, infer):
+            if proc.poll() is None:
+                proc.terminate()
+                proc.wait(60)
+
+
+def dp_train_cli_start():
+    """11c: ``cli.train_edges`` under the launcher on 7c's split; its
+    checks in :func:`dp_train_cli_end`."""
     out = os.path.join(DP_DIR, 'train_cli')
     import shutil
     shutil.rmtree(out, ignore_errors=True)
@@ -1421,22 +1459,28 @@ def phase_dp_train_cli():
     cfg.checkpoint.filepath = os.path.join(out, 'checkpoints')
     yaml_path = os.path.join(DP_DIR, 'train_cli.yaml')
     cfg.save_yaml(yaml_path)
-    _, wall, launches = launched('mindtheedge_tpu_torch.cli.train_edges', yaml_path)
+    return cfg, launch('mindtheedge_tpu_torch.cli.train_edges', yaml_path)
+
+
+def dp_train_cli_end(started):
+    """11c's checks -> the NMS kernel's launches."""
+    cfg, started = started
+    _, wall, launches = launched(started)
     files = os.listdir(cfg.checkpoint.filepath)
     ckpts = [f for f in files if f.endswith('.ckpt')]
     check(len(ckpts) == 1 and 'metrics.jsonl' in files, f'11c wrote {files}')
     print(f'phase 11c torch.distributed.run --standalone --nproc_per_node 1 -m '
           f'mindtheedge_tpu_torch.cli.train_edges, 7c\'s split at {KITTI_H}x{KITTI_W} (4 '
           f'frames, batch 2, 1 epoch, no validation): group up over NCCL at world 1, '
-          f'wrote {ckpts[0]} and metrics.jsonl; {wall:.1f} s wall with the launcher; nms '
-          f'launches {launches}')
+          f'wrote {ckpts[0]} and metrics.jsonl; {wall:.1f} s wall with the launcher (beside '
+          f'11d\'s); nms launches {launches}')
     return launches
 
 
-def phase_dp_infer_cli():
+def dp_infer_cli_start():
     """11d: ``cli.infer_edges --dp 1`` under the launcher on the first
-    frames of phase 9's split, against phase 9's files -> the NMS kernel's
-    launches."""
+    frames of phase 9's split; its checks against phase 9's files in
+    :func:`dp_infer_cli_end`."""
     import yaml
     out = os.path.join(DP_DIR, 'infer_cli')
     import shutil
@@ -1455,8 +1499,14 @@ def phase_dp_infer_cli():
     yaml_path = os.path.join(out, 'infer.yaml')
     with open(yaml_path, 'w') as f:
         yaml.safe_dump(cfg, f)
-    _, wall, launches = launched('mindtheedge_tpu_torch.cli.infer_edges', '--config', yaml_path,
-                                 '--batch', str(B), '--dp', '1', '--wire', 'u16')
+    return out, launch('mindtheedge_tpu_torch.cli.infer_edges', '--config', yaml_path,
+                       '--batch', str(B), '--dp', '1', '--wire', 'u16')
+
+
+def dp_infer_cli_end(started):
+    """11d's checks -> the NMS kernel's launches."""
+    out, started = started
+    _, wall, launches = launched(started)
     worst = 0.0
     for i in range(DP_INFER_FRAMES):
         name = f'{i:08d}_regular.npy'
@@ -1467,8 +1517,8 @@ def phase_dp_infer_cli():
     print(f'phase 11d torch.distributed.run --standalone --nproc_per_node 1 -m '
           f'mindtheedge_tpu_torch.cli.infer_edges --dp 1 --wire u16, {DP_INFER_FRAMES} '
           f'frames of phase 9: worst depth difference to phase 9\'s files {worst:.6f} m '
-          f'({worst * 256:.3f} u16 codes, bound 1); {wall:.1f} s wall with the launcher; '
-          f'nms launches {launches}')
+          f'({worst * 256:.3f} u16 codes, bound 1); {wall:.1f} s wall with the launcher '
+          f'(beside 11c\'s); nms launches {launches}')
     return launches
 
 
@@ -1515,9 +1565,10 @@ def phase_spatial_nccl(dev):
         [d.cpu() for d in want]
 
 
-def ddad_argv(name, spatial_arg):
+def ddad_argv(name, spatial_arg, precision='float32'):
     """``cli.infer_edges`` argv of :data:`DDAD_CONFIG` on the synthetic
-    DDAD split in :data:`SPATIAL_DIR`, its output in ``name``."""
+    DDAD split in :data:`SPATIAL_DIR`, its output in ``name``, at
+    ``arch.precision`` ``precision``."""
     import yaml
     with open(DDAD_CONFIG) as f:
         cfg = yaml.safe_load(f)
@@ -1525,6 +1576,7 @@ def ddad_argv(name, spatial_arg):
     cfg['datasets']['augmentation']['image_shape'] = list(DDAD_SHAPE)
     cfg['save']['folder'] = os.path.join(SPATIAL_DIR, name)
     cfg['analysis']['run_heavy_edge_metrics'] = False
+    cfg.setdefault('arch', {})['precision'] = precision
     path = os.path.join(SPATIAL_DIR, f'{name}.yaml')
     with open(path, 'w') as f:
         yaml.safe_dump(cfg, f)
@@ -1532,79 +1584,226 @@ def ddad_argv(name, spatial_arg):
             '--wire', 'f32']
 
 
-def phase_spatial_gloo(dev, request, want):
-    """12b and 12c: two spawned ranks over gloo sharing the card, their
-    oracles computed first on the card alone -> {'12b': NMS launches,
-    '12c': NMS launches}."""
+def ddad_maps(name):
+    return [np.load(os.path.join(SPATIAL_DIR, name, f'{i:08d}_regular.npy'))
+            for i in range(DDAD_FRAMES)]
+
+
+def within_card_band(what, got, gap):
+    """``got`` (median, max) within ``BAND`` times the card's own
+    bf16-vs-fp32 ``gap`` (median, max) on the same inputs."""
+    for name, g, j in zip(('median', 'max'), got, gap):
+        check(g <= BAND * j, f'{what} {name}: {g:.3e} > {BAND} x the card\'s bf16-vs-fp32 '
+              f'{j:.3e}')
+
+
+def step_band(got, want16, want32):
+    """A sharded bf16 step's outcome (``timed_outcome``) against the
+    unsharded bf16 step's and the fp32 one's (``step_outcome``) -> (gaps of
+    the sharded step, the card's bf16-vs-fp32 gaps): loss, gradients and
+    running statistics, each held within ``BAND`` times the card's own."""
+    stats = lambda d: {k: v for k, v in d.items() if k.endswith(('running_mean', 'running_var'))}
+    gap = {'loss': abs(want16[0] - want32[0]) / abs(want32[0]),
+           'grad': tensor_errs(want16[1], want32[1], want32[1]),
+           'stats': tensor_errs(stats(want16[2]), stats(want32[2]), stats(want32[2]))}
+    out = {'loss': abs(got['loss'] - want16[0]) / abs(want16[0]),
+           'grad': tensor_errs(got['grads'], want16[1], want32[1]),
+           'stats': tensor_errs(stats(got['state']), stats(want16[2]), stats(want32[2]))}
+    check(out['loss'] <= BAND * gap['loss'], f'12b bf16 loss {out["loss"]:.3e} > {BAND} x '
+          f'{gap["loss"]:.3e}')
+    within_card_band('12b bf16 gradients', out['grad'], gap['grad'])
+    within_card_band('12b bf16 running statistics', out['stats'], gap['stats'])
+    return out, gap
+
+
+def phase_rank_pair(dev, request, want):
+    """11b, 11e, 12b and 12c, fp32 and bf16: one pair of spawned ranks over
+    gloo sharing the card runs every job, their oracles computed first on
+    the card alone -> {path: NMS launches}."""
     import shutil
-    for name in ('ddad', 'ddad_plain', 'ddad_spatial'):
+    for name in ('ddad', 'ddad_plain', 'ddad_spatial', 'ddad_plain16', 'ddad_spatial16'):
         shutil.rmtree(os.path.join(SPATIAL_DIR, name), ignore_errors=True)
+    os.makedirs(DP_DIR, exist_ok=True)
+    dp_config = os.path.join(DP_DIR, 'train_fp32.yaml')
+    train_config().save_yaml(dp_config)
     cfg = train_config()
     cfg.model.loss.flip_lr_prob = 0.0
     config = os.path.join(SPATIAL_DIR, 'train_fp32_flip0.yaml')
     cfg.save_yaml(config)
+    cfg16 = train_config()
+    cfg16.model.loss.flip_lr_prob = 0.0
+    cfg16.arch.precision = 'bfloat16'
+    config16 = os.path.join(SPATIAL_DIR, 'train_bf16_flip0.yaml')
+    cfg16.save_yaml(config16)
     batch = full_width_batch(dev)
-    paths = {k: os.path.join(SPATIAL_DIR, f'{k}.pt') for k in ('batch', 'request')}
+    batch4 = full_width_batch(dev, seed=4, b=SHARDED_B)
+    paths = {k: os.path.join(SPATIAL_DIR, f'{k}.pt') for k in ('batch', 'batch4', 'request')}
     torch.save({k: v.cpu() for k, v in batch.items()}, paths['batch'])
+    torch.save({k: v.cpu() for k, v in batch4.items()}, paths['batch4'])
     torch.save(request, paths['request'])
     write_split(os.path.join(SPATIAL_DIR, 'ddad'), DDAD_FRAMES, DDAD_H, DDAD_W, seed=12)
 
-    # the oracles, on the card alone before the ranks start
+    # the oracles: the unsharded CLIs alone on the card (their wall seconds
+    # are compared), then the steps and the bf16 forward while the ranks
+    # start up
     nms_kernel.launches = 0
-    plain_step = step_outcome(cfg, batch, dev)
-    t0 = time.perf_counter()
-    infer_edges.main(ddad_argv('ddad_plain', '0'), device=dev)
-    plain_cli_s = time.perf_counter() - t0
-    plain_launches = nms_kernel.launches
-    del batch
+    plain_cli_s = {}
+    for precision, name in (('float32', 'ddad_plain'), ('bfloat16', 'ddad_plain16')):
+        t0 = time.perf_counter()
+        infer_edges.main(ddad_argv(name, '0', precision), device=dev)
+        plain_cli_s[precision] = time.perf_counter() - t0
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    ranks = start_ranks([(card_pair_job, {'full_config': config, 'full_batch': paths['batch'],
-                                          'full_forward': paths['request']}),
-                         (cli_job, {'argv': ddad_argv('ddad_spatial', '2'),
-                                    'device': 'cuda:0'})],
-                        2, os.path.join(SPATIAL_DIR, 'gloo'),
-                        threads=max(os.cpu_count() // 2, 1))
-    pair, cli = ranks.result(0), ranks.result(1)
+    jobs = {'gloo bf16': (gloo_dtype_job, {'device': 'cuda:0'}),
+            '11b': (oracle_job, {'device': 'cuda:0', 'full_config': dp_config,
+                                 'full_batch': paths['batch']}),
+            '12b': (card_pair_job, {'full_config': config, 'full_batch': paths['batch'],
+                                    'full_forward': paths['request']}),
+            '12c': (cli_job, {'argv': ddad_argv('ddad_spatial', '2'), 'device': 'cuda:0'}),
+            '12b bf16': (card_pair_job, {'full_config': config16, 'full_batch': paths['batch'],
+                                         'full_forward': paths['request'],
+                                         'dtype': torch.bfloat16}),
+            '12c bf16': (cli_job, {'argv': ddad_argv('ddad_spatial16', '2', 'bfloat16'),
+                                   'device': 'cuda:0'}),
+            '11e': (sharded_step_job, {'config': config, 'batch': paths['batch4'],
+                                       'device': 'cuda:0', 'timed_steps': SHARDED_STEPS,
+                                       'oracle': True})}
+    ranks = start_ranks(list(jobs.values()), 2, os.path.join(SPATIAL_DIR, 'gloo'),
+                        threads=max(os.cpu_count() // 2, 1), wait_s=PAIR_WAIT_S,
+                        cudnn_benchmark_limit=PAIR_CUDNN_LIMIT)
+    try:
+        plain_step = step_outcome(cfg, batch, dev)
+        plain_step16 = step_outcome(cfg16, batch, dev)
+        net16 = serve.build(device=dev, seed=0, dtype=torch.bfloat16)
+        with torch.no_grad():
+            want16 = [d.float().cpu() for d in net16(
+                request['rgb'].to(dev, torch.bfloat16),
+                request['lidar'].to(dev, torch.bfloat16))['inv_depths']]
+        del net16, batch, batch4
+        plain_launches = nms_kernel.launches
+        torch.cuda.empty_cache()
+    finally:
+        ranks.join()
+    res = {name: ranks.result(i) for i, name in enumerate(jobs)}
     ranks_s = time.perf_counter() - t0
-    for r, res in enumerate(pair):
-        full_fwd = forward_gap(res['full_forward'], want)
-        full = step_gaps(res['full_step'], plain_step)
-        step = res['full_step']
-        check(all(np.isfinite(step['losses'])), f'12b rank {r} losses {step["losses"]}')
-        print(f'phase 12b rank {r} of 2 over gloo on one card, H over 2, full width {H}x{W} b{B} forward against the unsharded '
-              f'card forward: max |err| {full_fwd:.3e}; {res["forward_ms"]["forward"]:.3f} ms '
-              f'a forward by CUDA events (both ranks on one card, gloo through the host); '
-              f'one forward runs {res["forward_counts"]["exchange"]} halo exchanges, '
-              f'{res["forward_counts"]["statistics"]} statistic reductions; one halo '
-              f'exchange of [4,32,192,1280] by 3 rows alone '
-              f'{res["forward_ms"]["exchange_32ch_p3"]:.3f} ms (host clock)')
-        print(f'phase 12b rank {r}, 7b\'s config (flip 0) {H}x{W} b{TRAIN_B} fp32: one spatial '
-              f'step against the plain card step: loss {full["loss"]:.3e} (rtol 1e-5), '
-              f'gradients {full["grad"]:.3e} of their largest (bound {GRAD_RTOL:g}), running '
-              f'statistics at {full["stats"]:.3f} of their tolerance (rtol 1e-4, atol 1e-6); {len(step["ms"])} steps after it: '
-              + ', '.join(f'{m:.3f}' for m in step['ms'])
-              + f' ms by CUDA events, peak {step["peak"] / 2**30:.3f} GiB a rank (7b: one '
-              f'process, the whole frame); losses ' + ', '.join(f'{v:.6f}' for v in step['losses']))
-    worst = 0.0
-    for i in range(DDAD_FRAMES):
-        name = f'{i:08d}_regular.npy'
-        got = np.load(os.path.join(SPATIAL_DIR, 'ddad_spatial', name))
-        plain_map = np.load(os.path.join(SPATIAL_DIR, 'ddad_plain', name))
-        check(got.shape == DDAD_SHAPE, f'12c depth map {got.shape}')
-        np.testing.assert_allclose(got, plain_map, rtol=1e-4, atol=1e-5, err_msg=name)
-        worst = max(worst, float(np.abs(got - plain_map).max()))
-    print(f'phase 12c infer_edges --spatial 2 --wire f32 on 2 gloo ranks sharing the card, '
-          f'{DDAD_FRAMES} frames {DDAD_H}x{DDAD_W} resized to {DDAD_SHAPE[0]}x{DDAD_SHAPE[1]} '
-          f'({DDAD_CONFIG}\'s model): depth within rtol 1e-4 atol 1e-5 of the unsharded CLI '
-          f'on the card (max |err| {worst:.3e} m); wall '
-          + ', '.join(f'rank {r} {c["seconds"]:.1f} s' for r, c in enumerate(cli))
-          + f', the unsharded CLI {plain_cli_s:.1f} s (one process); the two ranks\' '
-          f'phase-12b and 12c jobs {ranks_s:.1f} s from spawn to end; nms launches '
-          + ', '.join(str(c['nms_launches']) for c in cli) + f' (unsharded {plain_launches})')
-    return {'12b': sum(res['nms_launches'] for res in pair),
-            '12c': sum(c['nms_launches'] for c in cli)}
+    job_s = {name: max(ranks.seconds(i)) for i, name in enumerate(jobs)}
+
+    print('phase 12b gloo collectives with bf16 tensors on the card (rank 0): '
+          + ', '.join(f'{k} {v}' for k, v in res['gloo bf16'][0].items()))
+    results = res['11b']
+    gaps = oracle_gaps(results)
+    print(f'phase 11b 2 ranks over gloo on one card, [2 per rank,64,96] (16,)*6: one '
+          f'data-parallel step against rank 0\'s oracle (the mean of both ranks\' plain '
+          f'steps on the card): loss {gaps["loss"]:.3e}, worst gradient '
+          f'{gaps["grad"]:.3e} of its tensor\'s largest (bound {GRAD_RTOL:g}), running '
+          f'statistics {gaps["stats"]:.3e} (rtol 1e-4); both ranks\' parameters and '
+          f'buffers bit-equal')
+    for r, out in enumerate(results):
+        full = out['full']
+        check(all(np.isfinite(full['losses'])), f'11b rank {r} losses {full["losses"]}')
+        print(f'phase 11b rank {r}, full width {H}x{W} b{TRAIN_B} fp32, '
+              f'{full["parameters"]} parameters, gloo through the host (no NCCL speed '
+              f'figure), both ranks on one card: {len(full["ms"])} steps after 1 warm-up, '
+              + ', '.join(f'{m:.3f}' for m in full['ms'])
+              + f' ms by CUDA events, peak {full["peak"] / 2**30:.3f} GiB; one gradient '
+              f'all-reduce alone {full["all_reduce_ms"]:.3f} ms (host clock); losses '
+              + ', '.join(f'{v:.6f}' for v in full['losses']))
+
+    sharded_oracle = res['11e'][0]['oracle']
+    for r, out in enumerate(res['11e']):
+        gaps = step_gaps(out, sharded_oracle)
+        check(all(np.isfinite(out['losses'])), f'11e rank {r} losses {out["losses"]}')
+        print(f'phase 11e rank {r} of 2 over gloo on one card, make_sharded_train_step, '
+              f'7b\'s config (flip 0) {H}x{W} global b{SHARDED_B} ({SHARDED_B // 2} a rank) '
+              f'fp32: one step against the plain card step on the global batch: loss '
+              f'{gaps["loss"]:.3e} (rtol 1e-5), gradients {gaps["grad"]:.3e} of their largest '
+              f'(bound {GRAD_RTOL:g}), running statistics at {gaps["stats"]:.3f} of their '
+              f'tolerance (the plain step taken alone by rank 0); {len(out["ms"])} steps after it: '
+              + ', '.join(f'{m:.3f}' for m in out['ms'])
+              + f' ms by CUDA events, peak {out["peak"] / 2**30:.3f} GiB a rank; losses '
+              + ', '.join(f'{v:.6f}' for v in out['losses']))
+
+    for tag, plain, fwd_want in (('', plain_step, want), (' bf16', plain_step16, want16)):
+        for r, out in enumerate(res['12b' + tag]):
+            step = out['full_step']
+            check(all(np.isfinite(step['losses'])), f'12b{tag} rank {r} losses {step["losses"]}')
+            fwd = out['forward_ms']
+            if tag:
+                gap = rel_err_quantiles(torch.cat([d.flatten() for d in want16]),
+                                        torch.cat([d.flatten() for d in want]))[::2]
+                err = rel_err_quantiles(torch.cat([d.flatten() for d in out['full_forward']]),
+                                        torch.cat([d.flatten() for d in want16]))[::2]
+                within_card_band('12b bf16 forward inv_depths', err, gap)
+                fwd_text = (f'relative error of the 4 scales\' inv_depths against the unsharded '
+                            f'bf16 forward median {err[0]:.3e} / max {err[1]:.3e}, the card\'s '
+                            f'bf16 vs fp32 {gap[0]:.3e} / {gap[1]:.3e} (bound {BAND:g}x)')
+                sgaps, sgap = step_band(step, plain_step16, plain_step)
+                step_text = (f'loss {sgaps["loss"]:.3e}, gradients {sgaps["grad"][0]:.3e} / '
+                             f'{sgaps["grad"][1]:.3e}, running statistics '
+                             f'{sgaps["stats"][0]:.3e} / {sgaps["stats"][1]:.3e} (median / max '
+                             f'of each tensor\'s worst over its largest) against the unsharded '
+                             f'bf16 step; the card\'s bf16 vs fp32 {sgap["loss"]:.3e}, '
+                             f'{sgap["grad"][0]:.3e} / {sgap["grad"][1]:.3e}, '
+                             f'{sgap["stats"][0]:.3e} / {sgap["stats"][1]:.3e} (bound {BAND:g}x)')
+            else:
+                fwd_text = (f'max |err| {forward_gap(out["full_forward"], fwd_want):.3e} against '
+                            f'the unsharded card forward (rtol 1e-4, atol 1e-5)')
+                full = step_gaps(step, plain)
+                step_text = (f'loss {full["loss"]:.3e} (rtol 1e-5), gradients '
+                             f'{full["grad"]:.3e} of their largest (bound {GRAD_RTOL:g}), running '
+                             f'statistics at {full["stats"]:.3f} of their tolerance (rtol 1e-4, '
+                             f'atol 1e-6) against the plain card step')
+            print(f'phase 12b{tag} rank {r} of 2 over gloo on one card, H over 2, full width '
+                  f'{H}x{W} b{B} forward: {fwd_text}; {fwd["forward"]:.3f} ms a forward by '
+                  f'CUDA events, peak {fwd["peak"] / 2**30:.3f} GiB (both ranks on one card, '
+                  f'gloo through the host); one forward runs '
+                  f'{out["forward_counts"]["exchange"]} halo exchanges, '
+                  f'{out["forward_counts"]["statistics"]} statistic reductions; one halo '
+                  f'exchange of [4,32,192,1280] by 3 rows alone {fwd["exchange_32ch_p3"]:.3f} '
+                  f'ms (host clock)')
+            print(f'phase 12b{tag} rank {r}, 7b\'s config (flip 0) {H}x{W} b{TRAIN_B}: one '
+                  f'spatial step: {step_text}; {len(step["ms"])} steps after it: '
+                  + ', '.join(f'{m:.3f}' for m in step['ms'])
+                  + f' ms by CUDA events, peak {step["peak"] / 2**30:.3f} GiB a rank (7b: one '
+                  f'process, the whole frame); losses '
+                  + ', '.join(f'{v:.6f}' for v in step['losses']))
+
+    for tag, spatial_dir, plain_dir, precision in (
+            ('', 'ddad_spatial', 'ddad_plain', 'float32'),
+            (' bf16', 'ddad_spatial16', 'ddad_plain16', 'bfloat16')):
+        got, plain_maps = ddad_maps(spatial_dir), ddad_maps(plain_dir)
+        for m in got:
+            check(m.shape == DDAD_SHAPE, f'12c{tag} depth map {m.shape}')
+        if tag:
+            flat = lambda maps: torch.from_numpy(np.stack(maps)).flatten()
+            err = rel_err_quantiles(flat(got), flat(plain_maps))[::2]
+            gap = rel_err_quantiles(flat(plain_maps), flat(ddad_maps('ddad_plain')))[::2]
+            within_card_band('12c bf16 depth', err, gap)
+            text = (f'depth relative error against the unsharded bf16 CLI median {err[0]:.3e} '
+                    f'/ max {err[1]:.3e}, the unsharded CLI\'s bf16 vs fp32 {gap[0]:.3e} / '
+                    f'{gap[1]:.3e} (bound {BAND:g}x)')
+        else:
+            for i, (g, p) in enumerate(zip(got, plain_maps)):
+                np.testing.assert_allclose(g, p, rtol=1e-4, atol=1e-5, err_msg=f'frame {i}')
+            worst = max(float(np.abs(g - p).max()) for g, p in zip(got, plain_maps))
+            text = (f'depth within rtol 1e-4 atol 1e-5 of the unsharded CLI on the card (max '
+                    f'|err| {worst:.3e} m)')
+        cli = res['12c' + tag]
+        print(f'phase 12c{tag} infer_edges --spatial 2 --wire f32 at {precision} on 2 gloo ranks '
+              f'sharing the card, {DDAD_FRAMES} frames {DDAD_H}x{DDAD_W} resized to '
+              f'{DDAD_SHAPE[0]}x{DDAD_SHAPE[1]} ({DDAD_CONFIG}\'s model): {text}; wall '
+              + ', '.join(f'rank {r} {c["seconds"]:.1f} s' for r, c in enumerate(cli))
+              + f', the unsharded CLI {plain_cli_s[precision]:.1f} s (one process); nms '
+              f'launches ' + ', '.join(str(c['nms_launches']) for c in cli))
+    print(f'phase 11b, 11e, 12b and 12c (fp32 and bf16): {len(jobs)} jobs on one pair of '
+          f'ranks, {ranks_s:.1f} s from spawn to end (cuDNN\'s autotuner timing '
+          f'{PAIR_CUDNN_LIMIT} candidates a conv), the slower rank\'s seconds by job: '
+          + ', '.join(f'{k} {v:.1f}' for k, v in job_s.items())
+          + f'; the unsharded oracles\' NMS launches {plain_launches}')
+    check(plain_launches == 0, f'NMS kernel launched {plain_launches} times in the oracles')
+    return {name: sum(out['nms_launches'] for out in outs) for name, outs in res.items()
+            if name != 'gloo bf16'}
 
 
 def phase_variants_small(dev):
@@ -1631,10 +1830,14 @@ def phase_variants_small(dev):
           'card vs cpu [2,64,96]: one train_step\'s loss and metrics within rtol 1e-4; the '
           'networks\' backward from seeded cotangents: worst gradient error '
           + ', '.join(f'{tag} {err:.3e}' for tag, err in gaps['backward'].items())
-          + f' of its tensor\'s largest (bound {GRAD_RTOL:g}); the step\'s gradients, not held '
+          + f' of its tensor\'s largest (bound {GRAD_RTOL:g}); the step\'s gradients '
           '(ill-conditioned in fp32: near-ties of the soft argmax, coordinates on pixel centres), '
-          'relative L2 card vs cpu (the cpu\'s fp32 vs its fp64): '
-          + ', '.join(f'{tag} {card:.3e} ({own:.3e})' for tag, (card, own) in gaps['step'].items()))
+          'relative L2 (of the cpu fp64 gradient\'s norm) card vs cpu / the cpu\'s fp32 vs its '
+          f'fp64 / the card vs the cpu\'s fp64 (bound {GENERIC_STEP_BAND}x the cpu\'s) / a second '
+          'card step vs the first (ROADMAP L4): '
+          + ', '.join(f'{tag} ' + ' / '.join(f'{g[k]:.3e}' for k in ('card_cpu', 'cpu_64',
+                                                                     'card_64', 'card_card'))
+                      for tag, g in gaps['step'].items()))
     l2 = group_norm_fp64_gaps(dev)
     print('phase 13a L2: the seeded (16,)*6 PackNet-SAN 1A on blocky frames [4,128,128] on '
           'the card, largest relative error against its fp64 forward at scales 0-3: '
@@ -1785,6 +1988,18 @@ def phase_generic_train(dev):
     return out
 
 
+def phase_canny(dev):
+    """14: ``ops/canny.canny_sweep`` of KITTI-size images on the card
+    against the CPU (``tests/test_torch_canny_cuda.canny_card_vs_cpu``)."""
+    out = canny_card_vs_cpu(dev, CANNY_SHAPE)
+    print(f'phase 14 canny_sweep {list(CANNY_SHAPE)} uint8-range noisy blocky scenes, '
+          f'{len(CANNY_SWEEP)} thresholds (t/2, t), t = {CANNY_SWEEP[0]}..{CANNY_SWEEP[-1]}: '
+          f'{out["agree"]:.6f} of pixels agree with the CPU (bound 0.9999); '
+          f'{out["ms"]:.3f} ms a sweep by CUDA events (mean of 3 after a warm-up), '
+          f'{out["steps"]} dilation steps, {out["checks"]} host checks; edge pixels by '
+          f'threshold ' + ', '.join(str(n) for n in out['edges']))
+
+
 def card_line():
     out = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
@@ -1849,18 +2064,15 @@ def main():
               f'NMS kernel launched {launches10[name]} times in phase {name}')
     t11 = time.perf_counter()
     launches11 = {'11a': timed('11a', phase_dp_nccl, dev, losses7b)}
-    timed('11b', phase_dp_gloo, dev)
-    launches11['11c'] = timed('11c', phase_dp_train_cli)
-    launches11['11d'] = timed('11d', phase_dp_infer_cli)
-    for name, n in launches11.items():
+    launches11.update(timed('11c+11d', phase_dp_clis))
+    launches12 = {}
+    launches12['12a'], request, want12 = timed('12a', phase_spatial_nccl, dev)
+    pair = timed('11b+11e+12b-c', phase_rank_pair, dev, request, want12)
+    launches11.update({k: v for k, v in pair.items() if k.startswith('11')})
+    launches12.update({k: v for k, v in pair.items() if k.startswith('12')})
+    for name, n in list(launches11.items()) + list(launches12.items()):
         check(n == 0, f'NMS kernel launched {n} times in phase {name}')
-    print(f'phase 11 wall time {time.perf_counter() - t11:.1f} s')
-    t12 = time.perf_counter()
-    launches12a, request, want12 = timed('12a', phase_spatial_nccl, dev)
-    launches12 = dict(timed('12b-c', phase_spatial_gloo, dev, request, want12), **{'12a': launches12a})
-    for name, n in launches12.items():
-        check(n == 0, f'NMS kernel launched {n} times in phase {name}')
-    print(f'phase 12 wall time {time.perf_counter() - t12:.1f} s')
+    print(f'phases 11 and 12 wall time {time.perf_counter() - t11:.1f} s')
     t13 = time.perf_counter()
     launches13 = {}
     for name, fn in (('13a', phase_variants_small), ('13b', phase_rgb_edge_cli),
@@ -1871,6 +2083,10 @@ def main():
         check(launches13[name] == 0,
               f'NMS kernel launched {launches13[name]} times in phase {name}')
     print(f'phase 13 wall time {time.perf_counter() - t13:.1f} s')
+    nms_kernel.launches = 0
+    timed('14', phase_canny, dev)
+    launches14 = nms_kernel.launches
+    check(launches14 == 0, f'NMS kernel launched {launches14} times in phase 14')
     print('phase wall times (s): ' + ', '.join(f'{k} {v:.1f}' for k, v in walls.items()))
     print(f'chip_smoke wall time {time.perf_counter() - t0:.1f} s')
     card = card_line()
@@ -1882,7 +2098,7 @@ def main():
         'launches': (launches4 + launches5 + launches6 + launches7 + launches8 + launches9
                      + launches10a + launches10b + launches10c + sum(launches10.values())
                      + sum(launches11.values()) + sum(launches12.values())
-                     + sum(launches13.values())),
+                     + sum(launches13.values()) + launches14),
         'launches_by_path': {'serve': launches4, 'annotate': launches5,
                              'infer': launches6, 'train': launches7,
                              'train_dee_completion_selfsup': launches8,
@@ -1891,15 +2107,20 @@ def main():
                              'train_bf16': launches10['10d'],
                              'train_remat': launches10['10e'],
                              'train_dp_nccl': launches11['11a'],
+                             'train_dp_gloo2': launches11['11b'],
                              'train_dp_cli': launches11['11c'],
                              'infer_dp_cli': launches11['11d'],
+                             'train_sharded_gloo2': launches11['11e'],
                              'spatial_infer_nccl1': launches12['12a'],
                              'spatial_train_gloo2': launches12['12b'],
                              'spatial_infer_cli_gloo2': launches12['12c'],
+                             'spatial_train_bf16_gloo2': launches12['12b bf16'],
+                             'spatial_infer_cli_bf16_gloo2': launches12['12c bf16'],
                              'variants_card_vs_cpu': launches13['13a'],
                              'infer_rgb_edge_cli': launches13['13b'],
                              'train_packnet01': launches13['13c'],
-                             'train_generic': launches13['13d']},
+                             'train_generic': launches13['13d'],
+                             'canny_sweep': launches14},
         'max_abs_err': max(err2, err4, err5, err10),
         'mismatched_px': bad2 + bad4 + bad5 + bad10,
         'checked_px': px2 + prob.numel() + px5 + prob10.numel(),

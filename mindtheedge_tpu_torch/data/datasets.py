@@ -175,3 +175,9 @@ DATASET_REGISTRY = {
     'GTA': GTADataset,
     'KITTI': _kitti,
 }
+
+
+def register_dataset(name, cls):
+    """Make ``datasets.<mode>.dataset: [name]`` build ``cls``
+    (``datasets.py:183-184``)."""
+    DATASET_REGISTRY[name] = cls

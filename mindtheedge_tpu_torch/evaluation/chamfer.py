@@ -34,3 +34,15 @@ def chamfer_distance(im_pred, im_gt, mask=None, edge_to_edge_thresh=5):
     cond[on] = within
     cond[pred_flat < 0.5] = -1
     return c_dist, percentage, cond.reshape(gt_dist.shape)
+
+
+def edge_precision_recall(pred_edges, gt_edges, thresh_px=5):
+    """Bidirectional chamfer precision, recall and F1 (``chamfer.py:41-48``,
+    reference ``model_wrapper.py:427-441``): the share of predicted edge
+    pixels within ``thresh_px`` of a GT edge pixel, and the converse."""
+    _, precision, _ = chamfer_distance(pred_edges, gt_edges,
+                                       edge_to_edge_thresh=thresh_px)
+    _, recall, _ = chamfer_distance(gt_edges, pred_edges,
+                                    edge_to_edge_thresh=thresh_px)
+    f1 = 2 * precision * recall / max(precision + recall, 1e-12)
+    return float(precision), float(recall), float(f1)

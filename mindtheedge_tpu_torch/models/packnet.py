@@ -49,14 +49,24 @@ class PackNetSlimEncoder(nn.Module):
         self.conv5 = ResidualBlock(n4, n5, NUM_BLOCKS[3], dropout=dropout)
         self.pack5 = PackLayerConv3d(n5, PACK_KERNEL[4], d=d)
 
+    # (index, count): this rank's chunk of a batch sharded over ``count``
+    # ranks (parallel/mesh.make_sharded_train_step); None: the whole batch
+    batch_shard = None
+
     def dropout_keeps(self, batch, device, generator=None):
         """The dropout masks of one training forward (one list per residual
         stack), drawn from ``generator`` in the order the forward runs the
-        blocks; None without dropout."""
+        blocks; None without dropout.  Under ``batch_shard`` (i, n) they are
+        drawn for the global batch of ``n * batch`` and the i-th chunk's
+        kept, so every rank draws what the unsharded forward draws."""
         stacks = (self.conv2, self.conv3, self.conv4, self.conv5)
         if not stacks[0][0].dropout:
             return None
-        return [s.dropout_keeps(batch, device, generator) for s in stacks]
+        if self.batch_shard is None:
+            return [s.dropout_keeps(batch, device, generator) for s in stacks]
+        i, n = self.batch_shard
+        return [[k.chunk(n)[i] for k in s.dropout_keeps(n * batch, device, generator)]
+                for s in stacks]
 
     def forward(self, rgb, keeps=None):
         keeps = keeps or (None,) * 4

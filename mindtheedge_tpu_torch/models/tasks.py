@@ -397,6 +397,19 @@ class SemiSupEdgeTask(SemiSupTask):
             inv_depths, batch, batch.get('rgb_edge'),
             is_grad=True, is_sigmoid=True, sigmoid_thresh=4.0)
 
+    def train_loss(self, batch, generator=None, progress=0.0):
+        """Refuses, before any work, the edge loss at all scales with an
+        ``rgb_edge`` mask: the mask is full size and the maps of scales 1-3
+        are not (ROADMAP "Kept on purpose"; the JAX package stops inside
+        the loss there, with a TypeError)."""
+        if self.all_scales_edge and self.edge_cfg.train_depth_edges \
+                and batch.get('rgb_edge') is not None:
+            raise ValueError(
+                'model.loss.edges_depth_edge_loss_all_scales takes the edge loss at '
+                'scales 1-3, whose maps are smaller than the batch\'s full-size rgb_edge '
+                'mask: set it False, or train on a split without an rgb_edge column')
+        return super().train_loss(batch, generator, progress)
+
     def losses(self, batch, out):
         loss, metrics = self._weighted_self_sup(batch, out)
         edge = self.depth_edges_loss_weight * self._edge(out['inv_depths'], batch)

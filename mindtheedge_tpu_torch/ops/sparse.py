@@ -80,7 +80,10 @@ class MaskedBatchNorm(nn.Module):
     Under ``space`` the training statistics cover the whole frame
     (``sparse.py:220-236``): ``count`` and the sum are summed over the
     blocks, then the squared deviations from the global mean; the running
-    statistics take the global values, equal on every block.
+    statistics take the global values, equal on every block.  The sums
+    stay fp32 in bf16 too.  ``parallel/mesh.make_sharded_train_step``
+    sets a ``space`` of every rank, one chunk of the batch each: the
+    statistics then cover the global batch.
     """
 
     DECAY = 0.9

@@ -44,15 +44,19 @@ backward is left for later.
 ``mindtheedge_tpu/parallel/spatial.py:210-335``: this step, with the
 depth net on this rank's block of the frame.
 
-The JAX module's ``make_sharded_train_step`` (a global-batch estimator no
-caller uses) is not ported (ROADMAP).
+``make_sharded_train_step(task)`` is the JAX module's
+``make_sharded_train_step`` (``mesh.py:101-128``): the plain step on the
+*global* batch, its depth net run on this rank's chunk of it.  It differs
+from ``make_dp_train_step``, whose ranks each average the loss over their
+own chunk: the pooled losses are not linear in the split.
 """
 
 import torch
 import torch.distributed as dist
 
+from mindtheedge_tpu_torch.ops.sparse import MaskedBatchNorm
 from mindtheedge_tpu_torch.parallel import spatial
-from mindtheedge_tpu_torch.parallel.distributed import world_size
+from mindtheedge_tpu_torch.parallel.distributed import rank, world_size
 from mindtheedge_tpu_torch.training.train_step import make_train_step
 
 
@@ -157,5 +161,66 @@ def make_spatial_train_step(task, space):
             out['depth_loss'] = spatial.space_all_reduce(out['depth_loss'], space, mean=True)
         return out
 
+    task.output_hook = gather_outputs
+    return make_dp_train_step(task)
+
+
+def make_sharded_train_step(task):
+    """The plain step on the global batch, the depth net sharded over the
+    batch (``mindtheedge_tpu/parallel/mesh.py:101-128``, where XLA runs the
+    step jitted with the batch sharded and the state replicated):
+    ``step(state, batch, generator, progress=0.0) -> metrics``, ``batch``
+    the global batch on every rank, its size a multiple of the world size.
+
+    The depth net runs on this rank's contiguous chunk of the batch
+    (``task.net_input_transform``, after the lr-flip); its inverse-depth
+    pyramids are gathered over the ranks by a differentiable tiled
+    all-gather and ``depth_loss`` averaged (``task.output_hook``), so every
+    loss runs on the whole batch on every rank; then
+    :func:`make_dp_train_step`'s one mean of the gradients (each chunk's
+    carries the factor n of the gather's backward, as in
+    :func:`make_spatial_train_step`).  Where the plain step could part:
+
+    * the SAN's ``MaskedBatchNorm`` takes its training statistics over the
+      global batch, as XLA computes them over the sharded batch as one
+      (its ``space`` is a ``Space`` of every rank: count, sum and squared
+      deviations all-reduced);
+    * the dropout masks are drawn for the global batch from the caller's
+      generator, seeded alike on every rank, and each rank keeps its
+      chunk's (``PackNetSlimEncoder.batch_shard``); the lr-flip is one draw
+      for the whole batch.  So the draws are the plain step's.
+
+    A depth network with another batch norm (the ResNets' ``BatchNorm2d``)
+    would normalise by its chunk's statistics: it raises."""
+    n, me = world_size(), rank()
+    net = task.depth_net
+    if any(isinstance(m, torch.nn.BatchNorm2d) for m in net.modules()):
+        raise ValueError(f'make_sharded_train_step reduces the statistics of the SAN\'s '
+                         f'MaskedBatchNorm over the ranks; {type(net).__name__}\'s '
+                         'BatchNorm2d would take its chunk\'s statistics')
+    chunks = spatial.Space(n)       # one block a rank: the batch's chunks
+    for m in net.modules():
+        if isinstance(m, MaskedBatchNorm):
+            m.space = chunks
+        if hasattr(m, 'batch_shard'):
+            m.batch_shard = (me, n)
+
+    def chunk(x):
+        if x is None:
+            return None
+        if x.shape[0] % n:
+            raise ValueError(f'a global batch of {x.shape[0]} does not split over {n} ranks')
+        return x.chunk(n)[me]
+
+    def gather_outputs(out):
+        out = dict(out)
+        for key in ('inv_depths', 'inv_depths_rgbd'):
+            if key in out:
+                out[key] = [spatial._Gather.apply(d, 0, chunks.block_line) for d in out[key]]
+        if 'depth_loss' in out:
+            out['depth_loss'] = spatial.space_all_reduce(out['depth_loss'], chunks, mean=True)
+        return out
+
+    task.net_input_transform = lambda *inputs: [chunk(x) for x in inputs]
     task.output_hook = gather_outputs
     return make_dp_train_step(task)

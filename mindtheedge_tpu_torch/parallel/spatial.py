@@ -49,8 +49,11 @@ within a block, provided every local extent stays even through the 5 pack
 levels: ``(H / n) % 32 == 0`` (:func:`legal_space_sizes`).  The parameters
 do not change: any checkpoint loads into a sharded network.
 
-Computation is fp32: a halo exchange of another dtype raises (bf16 with
-spatial sharding waits for ROADMAP item 31).
+Under ``arch.precision: bfloat16`` the exchanges and gathers move the
+activations in their own dtype (gloo and NCCL both take bf16), while the
+statistics are reduced in fp32 and each normalised output is rounded to
+bf16 once, as the unsharded bf16 path computes them (``ops/blocks.py``,
+``ops/sparse.py``).
 """
 
 import torch
@@ -168,13 +171,6 @@ class Space:
                 f'data {self.data}, h {self.h}, w {self.w})')
 
 
-def _check_fp32(x):
-    if x.dtype != torch.float32:
-        raise NotImplementedError(
-            f'spatial sharding runs in float32, not {x.dtype}: bf16 with spatial '
-            'sharding waits for ROADMAP item 31')
-
-
 def _all_gather(x, line):
     """[line.size, *x.shape]: ``x`` of every rank along ``line``."""
     out = torch.empty((line.size * x.shape[0],) + x.shape[1:], dtype=x.dtype,
@@ -226,7 +222,6 @@ def halo_exchange(x, p, space):
     None (``spatial.py:69-107``)."""
     if p == 0 or space is None:
         return x
-    _check_fp32(x)
     for dim, line in space.lines():
         space.counts['exchange'] += 1
         x = _Exchange.apply(x, p, x.dim() + dim, line)
@@ -326,7 +321,9 @@ def group_norm(x, num_groups, weight, bias, eps, space):
     channels), so no ``E[x^2] - E[x]^2`` cancels where a channel's mean
     dwarfs its spread.  The JAX package averages ``E[x]`` and ``E[x^2]``
     (``blocks.py:112-131``), one pass, as its unsharded GroupNorm does;
-    the port's unsharded ``F.group_norm`` is two-pass, and so is this."""
+    the port's unsharded ``F.group_norm`` is two-pass, and so is this.
+    The output is computed in fp32 and rounded to ``x``'s dtype once, as
+    ``F.group_norm`` rounds a bf16 activation's."""
     b, c = x.shape[:2]
     xf = x.float()
     blocks = torch.stack([xf.mean((2, 3)), xf.var((2, 3), unbiased=False)])[None]
@@ -341,7 +338,7 @@ def group_norm(x, num_groups, weight, bias, eps, space):
     var_g = (var_gc + (mean_gc - mean_g[..., None]) ** 2).mean(-1)
     inv_c = torch.rsqrt(var_g + eps).repeat_interleave(c // num_groups, 1) * weight
     off_c = bias - mean_g.repeat_interleave(c // num_groups, 1) * inv_c
-    return x * inv_c[:, :, None, None].to(x.dtype) + off_c[:, :, None, None].to(x.dtype)
+    return (xf * inv_c[:, :, None, None] + off_c[:, :, None, None]).to(x.dtype)
 
 
 def shard_network(net, space):

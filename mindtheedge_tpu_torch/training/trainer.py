@@ -1,7 +1,9 @@
 """Trainer shims: counterpart of ``mindtheedge_tpu/training/trainer.py``
 (reference ``trainers/{base,common}_trainer.py``).  One ``Experiment`` owns
 the loop; ``CommonTrainer`` keeps the reference's
-``Trainer(**config.arch).fit(module)`` call shape."""
+``Trainer(**config.arch).fit(module)`` call shape.  Data parallelism lives
+in the step (``parallel/mesh.make_dp_train_step`` under ``torchrun``), so
+the reference's distributed trainer is the same trainer (``trainer.py:39``)."""
 
 
 class CommonTrainer:
@@ -24,3 +26,6 @@ class CommonTrainer:
         if experiment.test_loader is None:
             raise ValueError('No test dataset configured')
         return experiment.validate()
+
+
+HorovodTrainer = CommonTrainer

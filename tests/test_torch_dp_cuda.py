@@ -32,6 +32,12 @@ On the card (``cuda`` marker, skipped without a device):
   (loss rtol 1e-4, each gradient within 1e-4 of its tensor's largest,
   running statistics rtol 1e-4), and leave both ranks' parameters
   bit-equal.
+
+``sharded_step_job`` takes ``make_sharded_train_step`` on the global batch
+(``tests/test_torch_dp.py`` on the CPU against the JAX package;
+``chip_smoke.py`` phase 11e on the card against rank 0's plain step), and
+``timed_outcome`` is the one step (and timed steps) of any step maker that
+it and the spatial jobs share.
 """
 
 import datetime
@@ -50,7 +56,8 @@ import torch.distributed as dist
 from mindtheedge_tpu_torch.config import get_cfg_defaults
 from mindtheedge_tpu_torch.models.packnet import to_train_device
 from mindtheedge_tpu_torch.models.tasks import build_task
-from mindtheedge_tpu_torch.parallel.mesh import all_reduce_mean, make_dp_train_step
+from mindtheedge_tpu_torch.parallel.mesh import (
+    all_reduce_mean, make_dp_train_step, make_sharded_train_step)
 from mindtheedge_tpu_torch.training.train_step import create_train_state
 from tests.test_torch_train_cuda import (
     GRAD_RTOL, step_outcome, synthetic_batch, train_config, variants_vs_plain)
@@ -58,14 +65,19 @@ from tests.test_torch_train_cuda import (
 TIMEOUT_S = 600     # of a collective, and of waiting for the ranks
 
 
-def _rank_main(rank, world, store, backend, jobs, out, threads):
+def _rank_main(rank, world, store, backend, jobs, out, threads, cudnn_benchmark_limit):
     torch.set_num_threads(threads)
+    if cudnn_benchmark_limit is not None:
+        torch.backends.cudnn.benchmark_limit = cudnn_benchmark_limit
     try:
         dist.init_process_group(backend, init_method=f'file://{store}', rank=rank,
                                 world_size=world,
                                 timeout=datetime.timedelta(seconds=TIMEOUT_S))
         for i, (job, kwargs) in enumerate(jobs):
+            t0 = time.perf_counter()
             torch.save(job(rank, world, **kwargs), f'{out}.{i}.{rank}.pt')
+            with open(f'{out}.{i}.{rank}.s', 'w') as f:
+                f.write(repr(time.perf_counter() - t0))
     except BaseException:
         with open(f'{out}.{rank}.err', 'w') as f:
             f.write(traceback.format_exc())
@@ -76,16 +88,17 @@ def _rank_main(rank, world, store, backend, jobs, out, threads):
 
 
 class Ranks:
-    """The spawned ranks of :func:`start_ranks`."""
+    """The spawned ranks of :func:`start_ranks`; :meth:`join` waits
+    ``wait_s`` for all of their jobs."""
 
-    def __init__(self, procs, out):
-        self.procs, self.out = procs, out
+    def __init__(self, procs, out, wait_s=TIMEOUT_S):
+        self.procs, self.out, self.wait_s = procs, out, wait_s
         self._joined = False
 
     def join(self):
         if self._joined:
             return
-        deadline = time.monotonic() + TIMEOUT_S
+        deadline = time.monotonic() + self.wait_s
         for p in self.procs:
             p.join(max(deadline - time.monotonic(), 0.0))
         alive = [p for p in self.procs if p.is_alive()]
@@ -94,7 +107,7 @@ class Ranks:
             p.join(10)
         self._joined = True
         if alive:
-            raise TimeoutError(f'{len(alive)} rank(s) still running after {TIMEOUT_S} s')
+            raise TimeoutError(f'{len(alive)} rank(s) still running after {self.wait_s} s')
 
     def result(self, i):
         """Job ``i``'s result on every rank, in rank order."""
@@ -108,21 +121,32 @@ class Ranks:
                                f'{codes}):\n' + '\n'.join(errors))
         return [torch.load(p, weights_only=True) for p in paths]
 
+    def seconds(self, i):
+        """Job ``i``'s wall seconds on every rank, in rank order."""
+        self.result(i)
+        return [float(open(f'{self.out}.{i}.{r}.s').read()) for r in range(len(self.procs))]
 
-def start_ranks(jobs, world, workdir, backend='gloo', threads=1):
+
+def start_ranks(jobs, world, workdir, backend='gloo', threads=1, wait_s=TIMEOUT_S,
+                cudnn_benchmark_limit=None):
     """Spawn ``world`` ranks of ``threads`` CPU threads each that run
-    ``jobs`` ([(function, kwargs)]) in turn -> :class:`Ranks`."""
+    ``jobs`` ([(function, kwargs)]) in turn -> :class:`Ranks`, which waits
+    ``wait_s`` for them all.  ``cudnn_benchmark_limit``, if given, is the
+    number of cuDNN's candidate algorithms the ranks' autotuner times for
+    each conv (``torch.backends.cudnn.benchmark_limit``; PyTorch's default
+    is 10)."""
     os.makedirs(workdir, exist_ok=True)
     tag = uuid.uuid4().hex
     store = os.path.abspath(os.path.join(workdir, f'store-{tag}'))
     out = os.path.abspath(os.path.join(workdir, f'rank-{tag}'))
     ctx = multiprocessing.get_context('spawn')
     procs = [ctx.Process(target=_rank_main,
-                         args=(r, world, store, backend, jobs, out, threads))
+                         args=(r, world, store, backend, jobs, out, threads,
+                               cudnn_benchmark_limit))
              for r in range(world)]
     for p in procs:
         p.start()
-    return Ranks(procs, out)
+    return Ranks(procs, out, wait_s)
 
 
 def cpu_tree(d):
@@ -234,7 +258,9 @@ def oracle_job(rank, world, device, shape=(2, 64, 96), channels=(16,) * 6,
     batch), then ``full_steps`` data-parallel steps of that config on that
     batch after one warm-up -> ms of each by CUDA events, the peak memory,
     the ms of one all-reduce of the gradients alone (host clock,
-    synchronised)."""
+    synchronised); and the NMS kernel's launches in this job alone."""
+    from mindtheedge_tpu_torch.ops.cuda import nms_kernel
+    nms_kernel.launches = 0
     cfg = train_config(channels)
     b, h, w = shape
     batch = synthetic_batch(np.random.RandomState(0), b * world, h, w)
@@ -255,6 +281,7 @@ def oracle_job(rank, world, device, shape=(2, 64, 96), channels=(16,) * 6,
                          'grads': mean([o[1] for o in alone]), 'stats': mean(stats)}
     if full_config is not None:
         out['full'] = _full_width_steps(full_config, full_batch, full_steps, device)
+    out['nms_launches'] = nms_kernel.launches
     return out
 
 
@@ -287,6 +314,62 @@ def _full_width_steps(config, batch_path, steps, device):
             'peak': peak, 'all_reduce_ms': (time.perf_counter() - t0) * 1e3,
             'losses': [float(v) for v in losses],
             'parameters': sum(p.numel() for p in state.parameters())}
+
+
+def timed_outcome(cfg, batch, make_step, dev, timed_steps=0, weights=None):
+    """One step made by ``make_step(task)`` of ``cfg``'s task (its seeded
+    weights, or the depth state dict at ``weights``) on ``batch`` (whole
+    frames, the global batch) on ``dev``, generator seed 7 as
+    ``step_outcome``; then ``timed_steps`` more, each timed by CUDA events,
+    and the peak memory over them -> {'loss', 'metrics', 'grads', 'state',
+    and with ``timed_steps`` 'ms', 'peak', 'losses'}."""
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    task = build_task(cfg, device=dev)
+    if weights is not None:
+        task.depth_net.load_state_dict(torch.load(weights, weights_only=True), strict=True)
+    state = create_train_state(cfg, to_train_device(task.depth_net, dev),
+                               pose_net=task.pose_net)
+    step = make_step(task)
+    gen = torch.Generator(dev).manual_seed(7)
+    metrics = step(state, batch, gen)
+    out = {'loss': float(metrics['loss']),
+           'metrics': {k: float(v) for k, v in metrics.items()},
+           'grads': {n: p.grad.cpu().clone() for n, p in task.depth_net.named_parameters()},
+           'state': cpu_tree(task.depth_net.state_dict())}
+    if timed_steps:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(timed_steps + 1)]
+        events[0].record()
+        losses = []
+        for i in range(timed_steps):
+            losses.append(step(state, batch, gen)['loss'])
+            events[i + 1].record()
+        events[-1].synchronize()
+        out.update(ms=[events[i].elapsed_time(events[i + 1]) for i in range(timed_steps)],
+                   peak=torch.cuda.max_memory_allocated(dev),
+                   losses=[float(v) for v in losses])
+    return out
+
+
+def sharded_step_job(rank, world, config, batch, weights=None, device='cpu', timed_steps=0,
+                     oracle=False):
+    """:func:`timed_outcome` of ``make_sharded_train_step`` for the task of
+    the yaml ``config`` on the global batch in ``batch`` (a ``torch.save``d
+    dict; every rank holds all of it), and the NMS kernel's launches in
+    this job alone; with ``oracle``, rank 0 then also takes the plain step
+    on the global batch alone (``step_outcome``: the same seeded weights
+    and generator) -> 'oracle'."""
+    from mindtheedge_tpu_torch.ops.cuda import nms_kernel
+    nms_kernel.launches = 0
+    cfg = get_cfg_defaults()
+    cfg.merge_from_file(config)
+    data = torch.load(batch, weights_only=True)
+    out = timed_outcome(cfg, data, make_sharded_train_step, device, timed_steps, weights)
+    if oracle and rank == 0:
+        out['oracle'] = step_outcome(cfg, data, device)[:3]
+    out['nms_launches'] = nms_kernel.launches
+    return out
 
 
 # -- the checks -----------------------------------------------------------------

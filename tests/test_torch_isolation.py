@@ -38,7 +38,7 @@ def _import_all_with_blocked(blocked):
                  'evaluation.d3r', 'evaluation.depth_analyzer', 'cli.eval_depth',
                  'cli.eval_depth_edges', 'utils.colormap', 'utils.save', 'utils.reduce',
                  'utils.misc', 'utils.logging', 'parallel.distributed',
-                 'parallel.mesh', 'parallel.spatial'):
+                 'parallel.mesh', 'parallel.spatial', 'ops.canny', 'ops.lidar_sim'):
         assert f'mindtheedge_tpu_torch.{name}' in names
     code = ("import sys, importlib\n"
             f"for b in {list(blocked)!r}:\n"

@@ -32,9 +32,14 @@ work.  Training is in ``tests/test_torch_spatial_train.py``.
   differ by the unsharded forward's own error (above).  ``--spatial 3``
   exits with the legal sizes and ``--spatial 2`` in one process exits
   naming the launch, both before any work.
-* What is refused rather than run otherwise: bf16 activations (ROADMAP
-  item 31), W in the training step (the JAX step shards H only), a
-  network without spatial blocks, a grid the processes do not fill.
+* bf16: the sharded forward (H over 4, 2 x 2) against the JAX package's
+  sharded bf16 on the virtual devices and against the port's unsharded
+  bf16, and ``infer_edges --spatial 2`` at ``arch.precision: bfloat16``
+  against the unsharded bf16 CLI, each within tests/test_torch_bf16.py's
+  band (2x the bf16-vs-fp32 gap).
+* What is refused rather than run otherwise: W in the training step (the
+  JAX step shards H only), a network without spatial blocks, a grid the
+  processes do not fill.
 """
 
 import numpy as np
@@ -56,8 +61,9 @@ from tests.make_synthetic_dataset import make_dataset
 from tests.test_torch_blocks import perturb
 from tests.test_torch_dp import infer_argv
 from tests.test_torch_dp_cuda import infer_job, start_ranks
+from tests.test_torch_bf16 import BAND, rel_err, within_band
 from tests.test_torch_spatial_cuda import (
-    CHANNELS, HALO_GRIDS, forward_job, fp64_job, halo_cotangent, halo_job)
+    CHANNELS, HALO_GRIDS, forward_job, fp64_job, halo_cotangent, halo_job, load_net)
 
 torch.set_num_threads(1)
 
@@ -65,6 +71,7 @@ WORLD = 4
 HALO_X = np.random.RandomState(0).rand(2, 3, 16, 16).astype(np.float32)   # NCHW
 FORWARD_CASES = {'h4': ((4, None), (1, 128, 96)), 'w2': ((None, 2), (1, 32, 128)),
                  'hw2x2': ((2, 2), (1, 64, 128))}
+BF16_CASES = ('h4', 'hw2x2')
 CLI_FRAMES, CLI_SHAPE = 6, (128, 128)
 
 
@@ -88,14 +95,16 @@ def noise_split(root):
     return split
 
 
-def cli_argv(tmp, split, name, spatial_arg):
+def cli_argv(tmp, split, name, spatial_arg, precision='float32'):
     """``tests/test_torch_dp.infer_argv``'s run (the (16,)*6 network, random
-    weights, f32 wire) at ``CLI_SHAPE`` with ``--spatial spatial_arg``."""
+    weights, f32 wire) at ``CLI_SHAPE`` with ``--spatial spatial_arg``, at
+    ``arch.precision`` ``precision``."""
     import yaml
     argv = infer_argv(tmp, split, name, dp=-1)
     with open(argv[1]) as f:
         cfg = yaml.safe_load(f)
     cfg['datasets']['augmentation']['image_shape'] = list(CLI_SHAPE)
+    cfg['arch'] = {'precision': precision}
     with open(argv[1], 'w') as f:
         yaml.safe_dump(cfg, f)
     return argv + ['--spatial', spatial_arg]
@@ -122,7 +131,10 @@ def runs(tmp_path_factory):
             (forward_job, {'weights': str(tmp / 'weights.pt'), 'cases': cases}),
             (infer_job, {'argv': cli_argv(tmp, split, 'rows', '-1')}),
             (infer_job, {'argv': cli_argv(tmp, split, 'grid', '2x2')}),
-            (fp64_job, {'grid': (4, None), 'shape': (4, 128, 128)})]
+            (fp64_job, {'grid': (4, None), 'shape': (4, 128, 128)}),
+            (forward_job, {'weights': str(tmp / 'weights.pt'), 'dtype': torch.bfloat16,
+                           'cases': {k: cases[k] for k in BF16_CASES}}),
+            (infer_job, {'argv': cli_argv(tmp, split, 'rows16', '2', 'bfloat16')})]
     ranks = start_ranks(jobs, WORLD, str(tmp / 'ranks'))
     try:
         apply = jax.jit(lambda v, r, d: jmodel.apply(v, r, d, train=False)['inv_depths'])
@@ -130,12 +142,37 @@ def runs(tmp_path_factory):
                 for name, (_, rgb_, lidar_) in cases.items()}
         jax_halos = {f'{grid}/{p}': jax_halo(grid, p) for grid in HALO_GRIDS
                      for p in (1, 2, 3)}
+        want16 = {name: jax_sharded_bf16(jmodel, variables, *cases[name]) for name in BF16_CASES}
+        net16 = load_net(str(tmp / 'weights.pt')).to(torch.bfloat16)
+        with torch.no_grad():
+            plain16 = {name: [d.float().numpy() for d in net16(
+                torch.from_numpy(cases[name][1]).bfloat16(),
+                torch.from_numpy(cases[name][2]).bfloat16())['inv_depths']]
+                for name in BF16_CASES}
         infer_edges.main(cli_argv(tmp, split, 'plain', '0'), device='cpu')
+        infer_edges.main(cli_argv(tmp, split, 'plain16', '0', 'bfloat16'), device='cpu')
         ranks.join()
     except BaseException:
         ranks.join()
         raise
-    return {'ranks': ranks, 'tmp': tmp, 'split': split, 'want': want, 'jax_halos': jax_halos}
+    return {'ranks': ranks, 'tmp': tmp, 'split': split, 'want': want, 'jax_halos': jax_halos,
+            'want16': want16, 'plain16': plain16}
+
+
+def jax_sharded_bf16(jmodel, variables, grid, rgb, lidar):
+    """The JAX package's sharded forward of ``jmodel`` on ``grid`` of the
+    virtual CPU devices, in bf16 as its ``run_depth`` runs it (the
+    variables and inputs cast to bf16, the outputs back to fp32) -> 4
+    inverse depths, NHWC numpy."""
+    n_h, n_w = grid[0] or 1, grid[1] or 1
+    mesh = Mesh(np.asarray(jax.devices()[:n_h * n_w]).reshape(n_h, n_w), ('space', 'space_w'))
+    axis = ('space', 'space_w') if grid[1] else 'space'
+    infer = jspatial.make_spatial_infer(jmodel.clone(spatial_axis=axis), mesh, 'space',
+                                        with_depth=True,
+                                        w_axis_name='space_w' if grid[1] else None)
+    cast = lambda t: jnp.asarray(t).astype(jnp.bfloat16)
+    out = infer(jax.tree_util.tree_map(cast, variables), cast(rgb), cast(lidar))
+    return [np.asarray(d.astype(jnp.float32)) for d in out]
 
 
 def jax_halo(grid, p):
@@ -213,6 +250,39 @@ def test_sharded_forward_matches_jax(runs, name):
                                    err_msg=f'{name} scale {scale}')
 
 
+@pytest.mark.parametrize('name', BF16_CASES)
+def test_sharded_bf16_forward_within_band(runs, name):
+    """bf16 through the spatial seams: the port's sharded bf16 forward
+    against the JAX package's sharded bf16 and against the port's own
+    unsharded bf16, each within ``BAND`` times JAX's sharded bf16 gap to
+    its fp32 forward (tests/test_torch_bf16.py's band), at every scale."""
+    results = runs['ranks'].result(5)
+    assert all(res[name] is True for res in results[1:])
+    for s, (got, j16, p16, j32) in enumerate(zip(results[0][name], runs['want16'][name],
+                                                 runs['plain16'][name], runs['want'][name])):
+        assert got.dtype == torch.bfloat16 and got.shape == j16.shape
+        got = got.float().numpy()
+        gap = rel_err(j16, j32)
+        print(f'{name} scale {s}: JAX sharded bf16 vs fp32 {gap}, port sharded bf16 vs JAX '
+              f'{rel_err(got, j16)}, vs the port unsharded bf16 {rel_err(got, p16)}')
+        within_band(f'{name} scale {s} against JAX', rel_err(got, j16), gap)
+        within_band(f'{name} scale {s} against unsharded', rel_err(got, p16), gap)
+
+
+def test_infer_edges_spatial_bf16_within_band(runs):
+    """``infer_edges --spatial 2`` (2 data x 2 row blocks) at
+    ``arch.precision: bfloat16`` against the unsharded bf16 CLI, within
+    ``BAND`` times the unsharded CLI's own bf16-vs-fp32 gap."""
+    runs['ranks'].result(6)
+    out, plain16, plain = (runs['tmp'] / n for n in ('rows16', 'plain16', 'plain'))
+    for i in range(CLI_FRAMES):
+        got, want, want32 = (np.load(d / f'{i:08d}_regular.npy') for d in (out, plain16, plain))
+        assert got.shape == want.shape == CLI_SHAPE
+        gap = rel_err(want, want32)
+        assert gap[1] > 0, 'the bf16 CLI ran in fp32'
+        within_band(f'frame {i}', rel_err(got, want), gap)
+
+
 def test_sharded_forward_on_blocky_frames_is_closer_to_fp64(runs):
     for r, res in enumerate(runs['ranks'].result(4)):
         for scale, (got, plain) in enumerate(zip(res['sharded'], res['plain'])):
@@ -246,10 +316,7 @@ def test_infer_edges_spatial_refusals(runs):
 
 
 def test_spatial_refusals():
-    net = serve.build(CHANNELS, device='cpu', seed=0, dtype=torch.bfloat16)
-    infer = spatial.make_spatial_infer(net, spatial.Space(1), with_depth=False)
-    with pytest.raises(NotImplementedError, match='ROADMAP item 31'):
-        infer(torch.rand(1, 64, 64, 3).to(torch.bfloat16))
+    net = serve.build(CHANNELS, device='cpu', seed=0)
     with pytest.raises(ValueError, match='has no spatial support'):
         spatial.shard_network(DepthResNet(), spatial.Space(1))
     with pytest.raises(ValueError, match='do not divide 1 process'):

@@ -26,6 +26,11 @@ On the card (``cuda`` marker, skipped without a device), at channels
   one ``make_spatial_train_step`` step of the paper's task at [2,128,64]
   against the plain card step (loss rtol 1e-5, each gradient within 1e-4
   of its tensor's largest, running statistics rtol 1e-4).
+
+``chip_smoke.py`` phase 12 runs ``card_pair_job`` at full width in fp32
+and, with ``dtype=torch.bfloat16`` and a bf16 config, in bf16, and
+``gloo_dtype_job`` first, which reports the collectives that take bf16
+tensors on the card.
 """
 
 import time
@@ -42,7 +47,7 @@ from mindtheedge_tpu_torch.models.tasks import build_task
 from mindtheedge_tpu_torch.parallel import spatial
 from mindtheedge_tpu_torch.parallel.mesh import make_spatial_train_step
 from mindtheedge_tpu_torch.training.train_step import create_train_state
-from tests.test_torch_dp_cuda import cpu_tree, start_ranks
+from tests.test_torch_dp_cuda import cpu_tree, start_ranks, timed_outcome
 from tests.test_torch_train_cuda import GRAD_RTOL, step_outcome, synthetic_batch, train_config
 
 CHANNELS = (16,) * 6
@@ -96,17 +101,17 @@ def sharded_forward(net, space, rgb, lidar):
     return [spatial.gather_spatial(d, space) for d in local], counts
 
 
-def forward_job(rank, world, weights, cases, device='cpu'):
+def forward_job(rank, world, weights, cases, device='cpu', dtype=torch.float32):
     """The sharded eval forward of each case ({name: (grid, rgb, lidar)},
-    NHWC numpy) -> rank 0: {name: 4 gathered inverse depths}; the others:
-    whether theirs equal rank 0's (all ranks of a replica gather the same
-    frame)."""
+    NHWC numpy), the network and inputs in ``dtype`` -> rank 0: {name: 4
+    gathered inverse depths}; the others: whether theirs equal rank 0's
+    (all ranks of a replica gather the same frame)."""
     out = {}
     for name, (grid, rgb, lidar) in cases.items():
         space = spatial.Space(*grid)
-        got, _ = sharded_forward(load_net(weights, device), space,
-                                 torch.from_numpy(rgb).to(device),
-                                 torch.from_numpy(lidar).to(device))
+        got, _ = sharded_forward(load_net(weights, device).to(dtype), space,
+                                 torch.from_numpy(rgb).to(device, dtype),
+                                 torch.from_numpy(lidar).to(device, dtype))
         got = [d.cpu() for d in got]
         gathered = [torch.empty_like(d) for d in got]
         for g, d in zip(gathered, got):
@@ -146,14 +151,15 @@ def fp64_job(rank, world, grid, shape):
 
 
 def train_job(rank, world, config, batch, grid, depth_weights=None, pose_weights=None,
-              remat=(), device='cpu'):
+              remat=(), precision=None, device='cpu'):
     """One ``make_spatial_train_step`` of the task of the yaml ``config``
     (its seeded weights, or the state dicts at ``depth_weights`` and
-    ``pose_weights``) on this rank's data replica's share of the global
-    numpy batch in ``batch`` (.npz; lists as ``key.i``), generator seed 0,
-    then the same with each ``remat`` mode -> {'metrics', 'grads' (depth
-    and pose, averaged), 'state' (the depth network's after the step),
-    'remat': {mode: (metrics, grads)}}."""
+    ``pose_weights``; ``arch.precision`` set to ``precision`` if given) on
+    this rank's data replica's share of the global numpy batch in
+    ``batch`` (.npz; lists as ``key.i``), generator seed 0, then the same
+    with each ``remat`` mode -> {'metrics', 'grads' (depth and pose,
+    averaged), 'state' (the depth network's after the step), 'remat':
+    {mode: (metrics, grads)}}."""
     space = spatial.Space(*grid)
     with np.load(batch) as data:
         n = next(iter(data.values())).shape[0] // space.n_data
@@ -168,6 +174,8 @@ def train_job(rank, world, config, batch, grid, depth_weights=None, pose_weights
         cfg = get_cfg_defaults()
         cfg.merge_from_file(config)
         cfg.model.depth_net.remat = mode
+        if precision is not None:
+            cfg.arch.precision = precision
         task = build_task(cfg, device=device)
         if depth_weights:
             task.depth_net.load_state_dict(torch.load(depth_weights, weights_only=True))
@@ -189,16 +197,16 @@ def train_job(rank, world, config, batch, grid, depth_weights=None, pose_weights
 
 
 def card_pair_job(rank, world, full_config=None, full_batch=None, full_forward=None,
-                  steps=3):
+                  steps=3, dtype=torch.float32):
     """Two gloo ranks sharing ``cuda:0``, H over ``world``: without
     ``full_config``, the gathered forward of :func:`small_card_inputs`
     and one spatial step of the paper's task at [2,128,64]; with
     ``full_config``, ``full_batch`` and ``full_forward`` (paths), the
-    full-width forward of ``serve.build``'s seeded SLIM network on the
-    request in ``full_forward`` and one step of that config on that batch,
-    then ``steps`` timed steps -> their outcomes, times, peak memory and
-    the collectives of one forward, and the NMS kernel's launches in
-    this job alone."""
+    full-width forward of ``serve.build``'s seeded SLIM network in
+    ``dtype`` on the request in ``full_forward`` and one step of that
+    config on that batch, then ``steps`` timed steps -> their outcomes
+    (the inverse depths as fp32), times, peak memory and the collectives
+    of one forward, and the NMS kernel's launches in this job alone."""
     from mindtheedge_tpu_torch.ops.cuda import nms_kernel
     nms_kernel.launches = 0
     dev = torch.device('cuda:0')
@@ -208,21 +216,44 @@ def card_pair_job(rank, world, full_config=None, full_batch=None, full_forward=N
         net, rgb, lidar, _ = small_card_inputs(dev)
         out['small_forward'] = [d.cpu() for d in sharded_forward(net, space, rgb, lidar)[0]]
         batch = synthetic_batch(np.random.RandomState(0), 2, 128, 64)
-        out['small_step'] = _spatial_outcome(train_config(), batch, space, dev)
+        out['small_step'] = timed_outcome(train_config(), batch, spatial_step(space), dev)
     else:
-        request = torch.load(full_forward, weights_only=True)
-        net = serve.build(device=dev, seed=0)
-        got, counts = sharded_forward(net, space, request['rgb'].to(dev),
-                                      request['lidar'].to(dev))
-        out['full_forward'] = [d.cpu() for d in got]
+        request = {k: v.to(dev, dtype) for k, v in
+                   torch.load(full_forward, weights_only=True).items()}
+        net = serve.build(device=dev, seed=0, dtype=dtype)
+        got, counts = sharded_forward(net, space, request['rgb'], request['lidar'])
+        out['full_forward'] = [d.float().cpu() for d in got]
         out['forward_counts'] = counts
         out['forward_ms'] = _forward_ms(net, space, request, dev)
         del net
         full = get_cfg_defaults()
         full.merge_from_file(full_config)
         batch = {k: v.to(dev) for k, v in torch.load(full_batch, weights_only=True).items()}
-        out['full_step'] = _spatial_outcome(full, batch, space, dev, timed_steps=steps)
+        out['full_step'] = timed_outcome(full, batch, spatial_step(space), dev,
+                                         timed_steps=steps)
     out['nms_launches'] = nms_kernel.launches
+    return out
+
+
+def gloo_dtype_job(rank, world, device, dtype=torch.bfloat16):
+    """Whether each collective of the spatial and data-parallel paths takes
+    ``dtype`` tensors on ``device`` in this process group -> {collective:
+    'ok' or the error}."""
+    x = torch.full((4,), rank + 1.0, device=device, dtype=dtype)
+    calls = {
+        'all_gather_into_tensor': lambda: dist.all_gather_into_tensor(
+            torch.empty(4 * world, device=device, dtype=dtype), x),
+        'all_reduce': lambda: dist.all_reduce(x.clone()),
+        'reduce_scatter_tensor': lambda: dist.reduce_scatter_tensor(
+            torch.empty(4 // world, device=device, dtype=dtype), x.clone()),
+        'broadcast': lambda: dist.broadcast(x.clone(), src=0)}
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            out[name] = 'ok'
+        except Exception as e:
+            out[name] = f'{type(e).__name__}: {e}'
     return out
 
 
@@ -239,11 +270,14 @@ def cli_job(rank, world, argv, device='cpu'):
 
 def _forward_ms(net, space, request, dev, iters=3):
     """ms of the sharded forward on this rank by CUDA events, after one
-    warm-up, and of each halo exchange alone (host clock, synchronised)."""
+    warm-up, and the peak memory over the timed forwards; and of each halo
+    exchange alone (host clock, synchronised)."""
     infer = spatial.make_spatial_infer(net, space, with_depth=True)
-    rgb = spatial.shard_spatial(request['rgb'].to(dev), space)
-    lidar = spatial.shard_spatial(request['lidar'].to(dev), space)
+    rgb = spatial.shard_spatial(request['rgb'], space)
+    lidar = spatial.shard_spatial(request['lidar'], space)
     infer(rgb, lidar)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
     events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     dist.barrier()
     events[0].record()
@@ -251,45 +285,19 @@ def _forward_ms(net, space, request, dev, iters=3):
         infer(rgb, lidar)
     events[1].record()
     events[1].synchronize()
-    x = torch.rand(rgb.shape[0], 32, rgb.shape[1], rgb.shape[2], device=dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    x = torch.rand(rgb.shape[0], 32, rgb.shape[1], rgb.shape[2], device=dev, dtype=rgb.dtype)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(iters):
         spatial.halo_exchange(x, 3, space)
     torch.cuda.synchronize()
-    return {'forward': events[0].elapsed_time(events[1]) / iters,
+    return {'forward': events[0].elapsed_time(events[1]) / iters, 'peak': peak,
             'exchange_32ch_p3': (time.perf_counter() - t0) * 1e3 / iters}
 
 
-def _spatial_outcome(cfg, batch, space, dev, timed_steps=0):
-    """One spatial step of ``cfg``'s seeded task on ``batch`` (whole frames
-    on ``dev``), generator seed 7 as ``step_outcome``; then
-    ``timed_steps`` more, each timed by CUDA events, and the peak memory
-    over them -> {'loss', 'grads', 'state', 'ms', 'peak'}."""
-    batch = {k: v.to(dev) for k, v in batch.items()}
-    task = build_task(cfg, device=dev)
-    state = create_train_state(cfg, to_train_device(task.depth_net, dev),
-                               pose_net=task.pose_net)
-    step = make_spatial_train_step(task, space)
-    gen = torch.Generator(dev).manual_seed(7)
-    metrics = step(state, batch, gen)
-    out = {'loss': float(metrics['loss']),
-           'grads': {n: p.grad.cpu().clone() for n, p in task.depth_net.named_parameters()},
-           'state': cpu_tree(task.depth_net.state_dict())}
-    if timed_steps:
-        torch.cuda.synchronize(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-        events = [torch.cuda.Event(enable_timing=True) for _ in range(timed_steps + 1)]
-        events[0].record()
-        losses = []
-        for i in range(timed_steps):
-            losses.append(step(state, batch, gen)['loss'])
-            events[i + 1].record()
-        events[-1].synchronize()
-        out.update(ms=[events[i].elapsed_time(events[i + 1]) for i in range(timed_steps)],
-                   peak=torch.cuda.max_memory_allocated(dev),
-                   losses=[float(v) for v in losses])
-    return out
+def spatial_step(space):
+    return lambda task: make_spatial_train_step(task, space)
 
 
 def step_gaps(got, want):

@@ -32,14 +32,19 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from jax.sharding import Mesh
 
 from mindtheedge_tpu.models import tasks as jtasks
+from mindtheedge_tpu.parallel import spatial as jspatial
+from mindtheedge_tpu.training.train_step import create_train_state as jcreate_state
 from mindtheedge_tpu_torch.utils.weights import pose_state_dict_from_jax, state_dict_from_jax
 from tests.test_torch_blocks import perturb
 from tests.test_torch_dp_cuda import start_ranks
 from tests.test_torch_spatial_cuda import train_job
 from tests.test_torch_train_cuda import synthetic_batch
-from tests.test_torch_train_step import GRAD_RTOL, port_config, train_config
+from tests.test_torch_bf16 import BAND, bf16_config, grad_errs, rel_err, within_band
+from tests.test_torch_dp import keep_gradient
+from tests.test_torch_train_step import GRAD_RTOL, port_config, port_task, to_torch, train_config
 from tests.test_torch_train_tasks import jax_variables, selfsup_batch, task_config
 
 torch.set_num_threads(1)
@@ -129,7 +134,9 @@ def runs(tmp_path_factory):
     save_batch(sbatch, tmp / 'selfsup.npz')
 
     quad = start_ranks([(train_job, dict(edge, grid=(4,), remat=(True, 'conv'))),
-                        (train_job, dict(edge, grid=(2,)))], 4, str(tmp / 'quad'))
+                        (train_job, dict(edge, grid=(2,))),
+                        (train_job, dict(edge, grid=(4,), precision='bfloat16'))],
+                       4, str(tmp / 'quad'))
     pair = start_ranks([(train_job, {'config': str(tmp / 'selfsup.yaml'),
                                      'batch': str(tmp / 'selfsup.npz'), 'grid': (2,),
                                      'depth_weights': str(tmp / 'selfsup_depth.pt'),
@@ -140,6 +147,8 @@ def runs(tmp_path_factory):
         halves = [jax_grads(jcfg, {'depth': depth}, {k: v[i:i + 1] for k, v in batch.items()})
                   for i in range(B)]
         selfsup = jax_grads(scfg, svars, sbatch)
+        jax16 = jax_space_step(bf16_config(jcfg), depth, batch)
+        plain16 = port_bf16_step(jcfg, depth, batch)
         quad.join()
         pair.join()
     except BaseException:
@@ -147,7 +156,40 @@ def runs(tmp_path_factory):
         pair.join()
         raise
     return {'quad': quad, 'pair': pair, 'full': full, 'halves': halves, 'selfsup': selfsup,
-            'depth': depth, 'svars': svars}
+            'depth': depth, 'svars': svars, 'jax16': jax16, 'plain16': plain16}
+
+
+def jax_space_step(jcfg, depth, batch):
+    """The JAX package's ``make_spatial_train_step``, H over 4 of the
+    virtual CPU devices -> (loss, gradients as port names, running
+    statistics as port names); the gradients are read from an optax
+    transformation that keeps them as its state."""
+    jtask, opt = jtasks.build_task(jcfg), keep_gradient()
+    state = jcreate_state(jtask, opt, jax.random.PRNGKey(0), batch, variables={'depth': depth})
+    step = jspatial.make_spatial_train_step(jtask, opt, Mesh(np.asarray(jax.devices()[:4]),
+                                                             ('space',)))
+    new_state, metrics = step(state, batch, jax.random.PRNGKey(0))
+    tree = lambda t: jax.tree_util.tree_map(np.asarray, t)
+    return (float(metrics['loss']), grads_as_port({'depth': tree(new_state.opt_state['depth'])}),
+            stats_of(depth['params'], tree(new_state.batch_stats['depth'])))
+
+
+def port_bf16_step(jcfg, depth, batch):
+    """The port's unsharded bf16 ``train_loss`` and backward -> (loss,
+    gradients as port names, running statistics)."""
+    task = port_task(bf16_config(jcfg), depth)
+    loss, _ = task.train_loss(to_torch(batch), torch.Generator().manual_seed(0))
+    loss.backward()
+    return (float(loss.detach()),
+            {f'depth.{n}': p.grad for n, p in task.depth_net.named_parameters()},
+            {k: v for k, v in task.depth_net.state_dict().items()
+             if k.endswith(('running_mean', 'running_var'))})
+
+
+def stats_of(params, stats):
+    """The running statistics of a JAX ``batch_stats`` tree, as port names."""
+    return {k: v for k, v in state_dict_from_jax(params, stats).items()
+            if k.endswith(('running_mean', 'running_var'))}
 
 
 def mean_outcome(outcomes):
@@ -219,3 +261,37 @@ def test_selfsup_space_step_matches_jax(runs):
     for k, g in results[0]['grads'].items():
         torch.testing.assert_close(params[k] - SGD_LR * g, params[k] - SGD_LR * want[k],
                                    rtol=1e-4, atol=1e-5, msg=lambda m, k=k: f'{k}: {m}')
+
+
+def test_space_bf16_step_within_band(runs):
+    """bf16 through the spatial seams in training: the H-over-4 step at
+    ``arch.precision: bfloat16`` against the JAX package's sharded bf16
+    step and against the port's unsharded bf16 step, each within ``BAND``
+    times JAX's sharded bf16 gap to its fp32 step (tests/test_torch_bf16.py's
+    band): the loss, and the gradients and the running statistics by each
+    tensor's worst error over its largest |value|, median and max over the
+    tensors (an element's own relative error is unbounded where a running
+    mean lies near 0)."""
+    results = runs['quad'].result(2)
+    port = results[0]
+    for res in results[1:]:
+        for k, v in port['grads'].items():
+            assert torch.equal(res['grads'][k], v), k
+    loss32, _, grads32, stats32 = runs['full']
+    grads32 = grads_as_port(grads32)
+    stats32 = stats_of(runs['depth']['params'], stats32)
+    stats = {k: v for k, v in port['state'].items() if k in stats32}
+    loss16, grads16, jstats16 = runs['jax16']
+    gap = (abs(loss16 - loss32) / abs(loss32), grad_errs(grads16, grads32, grads32),
+           grad_errs(jstats16, stats32, stats32))
+    print(f'JAX sharded bf16 vs fp32: loss {gap[0]:.3e}, gradients {gap[1]}, '
+          f'statistics {gap[2]}')
+    for what, (loss, grads, jstats) in (('JAX sharded bf16', runs['jax16']),
+                                         ('the port\'s unsharded bf16', runs['plain16'])):
+        got = (abs(port['metrics']['loss'] - loss) / abs(loss),
+               grad_errs(port['grads'], grads, grads32), grad_errs(stats, jstats, stats32))
+        print(f'port sharded bf16 vs {what}: loss {got[0]:.3e}, gradients {got[1]}, '
+              f'statistics {got[2]}')
+        assert got[0] <= BAND * gap[0], (what, got[0], gap[0])
+        within_band(f'gradients against {what}', got[1], gap[1])
+        within_band(f'statistics against {what}', got[2], gap[2])

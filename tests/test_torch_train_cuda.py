@@ -445,26 +445,31 @@ def step_outcome(cfg, batch, device, seed=7, make_step=make_train_step):
             gen.get_state())
 
 
+def tensor_errs(got, want, ref):
+    """Each tensor's largest |got - want| over its largest |want| ->
+    (median, max) over the tensors whose largest |value| in ``ref`` is above
+    1e-5 of the largest there: below it a gradient vanishes analytically (a
+    conv bias in front of a one-channel GroupNorm group) and holds rounding
+    noise alone, bf16's far above 1e-5."""
+    top = max(float(g.abs().max()) for g in ref.values())
+    errs = [float((got[n].float() - g.float()).abs().max()) / float(g.abs().max())
+            for n, g in want.items() if float(ref[n].abs().max()) > 1e-5 * top]
+    return float(np.median(errs)), max(errs)
+
+
 def outcome_gaps(got, want, fp32=None):
     """How far one step's outcome lies from another's -> {'loss': relative
     error, 'grad': (median, max) over the gradient tensors of the tensor's
     largest error over its largest |value|, 'stats': (median, max) relative
     error of the running statistics, 'counts': whether
     ``num_batches_tracked`` are equal, 'generator': whether the generators'
-    states are}.  A gradient tensor whose largest |value| in ``fp32`` (an
-    fp32 outcome, else ``want``) is below 1e-5 of the network's vanishes
-    analytically (a conv bias in front of a one-channel GroupNorm group)
-    and holds rounding noise alone, bf16's far above 1e-5: it is left
-    out."""
-    ref = (fp32 or want)[1]
-    top = max(float(g.abs().max()) for g in ref.values())
-    grads = [float((got[1][n] - g).abs().max()) / float(g.abs().max())
-             for n, g in want[1].items() if float(ref[n].abs().max()) > 1e-5 * top]
+    states are}.  A gradient tensor that vanishes in ``fp32`` (an fp32
+    outcome, else ``want``) is left out (:func:`tensor_errs`)."""
     keys = [k for k in want[2] if k.endswith(('running_mean', 'running_var'))]
     stats = torch.cat([((got[2][k] - want[2][k]).abs() / want[2][k].abs().clamp_min(1e-30)
                         ).ravel() for k in keys]).double().numpy()
     return {'loss': abs(got[0] - want[0]) / abs(want[0]),
-            'grad': (float(np.median(grads)), max(grads)),
+            'grad': tensor_errs(got[1], want[1], (fp32 or want)[1]),
             'stats': (float(np.median(stats)), float(stats.max())),
             'counts': all(torch.equal(got[2][k], v) for k, v in want[2].items()
                           if k.endswith('num_batches_tracked')),

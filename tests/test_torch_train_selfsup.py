@@ -37,12 +37,14 @@ PHOTOMETRIC = {'photometric_loss', 'smoothness_loss'}
 
 
 def test_semisup_below_weight_1_matches_jax():
-    """Without LiDAR: the RGB pass alone."""
+    """Without LiDAR: the RGB pass alone, against the JAX package in fp64
+    (measured on the CPU: against JAX's fp32 gradients the port's worst
+    tensor lay at 0.60 of its bound, within 2x of it)."""
     batch = selfsup_batch(3)
     del batch['input_depth']
     task, metrics, _ = check_train_loss(
         task_config('SemiSupModel', weight=0.5, pose_net='PoseNet'), batch,
-        PHOTOMETRIC | {'supervised_loss', 'loss'})
+        PHOTOMETRIC | {'supervised_loss', 'loss'}, x64=True)
     assert task.pose_net is not None and not task.pose_net.training
     assert float(task.pose_net.pose_pred.weight.grad.abs().max()) > 0
 

@@ -321,3 +321,24 @@ def test_steplr_by_epoch_matches_jax(weights):
         for step in range(epoch * spe, (epoch + 1) * spe):
             assert state.optimizer.param_groups[0]['lr'] == pytest.approx(schedule(step))
         state.scheduler.step()
+
+
+@pytest.mark.parametrize('name', ['SemiSupEdgeModel', 'SemiSupEdgeCompletionModel'])
+def test_edge_loss_at_all_scales_refuses_an_rgb_edge_mask(name):
+    """ROADMAP L3: the edge loss at all scales cannot take the full-size
+    ``rgb_edge`` mask at scales 1-3 (the JAX package stops inside the
+    loss with a TypeError); the port refuses it at the first batch, before
+    the forward, and trains with the mask at scale 0 alone."""
+    cfg = port_config(train_config())
+    cfg.model.name = name
+    task = tasks.build_task(cfg, device='cpu')
+    batch = to_torch(make_batch())
+    batch['rgb_edge'] = torch.ones(batch['rgb'].shape[:3] + (1,))
+    calls = []
+    task.depth_net.register_forward_hook(lambda *args: calls.append(1))
+    with pytest.raises(ValueError, match=r'edges_depth_edge_loss_all_scales.*rgb_edge'):
+        task.train_loss(batch)
+    assert not calls
+    task.all_scales_edge = False
+    loss, _ = task.train_loss(batch)
+    assert calls and torch.isfinite(loss)

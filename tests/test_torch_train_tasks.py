@@ -190,24 +190,36 @@ def assert_stats_close(task, params, new_stats):
                                        msg=lambda m, name=name: f'{name}: {m}')
 
 
-def check_train_loss(jcfg, batch, metric_keys, progress=0.0):
+def f64(tree):
+    """``tree`` with its floating-point arrays cast to float64 (numpy)."""
+    return jax.tree_util.tree_map(
+        lambda a: np.asarray(a, np.float64) if np.issubdtype(np.asarray(a).dtype, np.floating)
+        else a, tree)
+
+
+def check_train_loss(jcfg, batch, metric_keys, progress=0.0, x64=False):
     """One ``train_loss`` + backward of the port against
     ``jax.value_and_grad`` of the JAX task's, at training ``progress``:
     loss, metrics, gradients of both networks, and the running statistics
-    the forward updates."""
+    the forward updates.  With ``x64`` the JAX side runs in fp64
+    (``jax.enable_x64``, its variables and batch cast to float64): the
+    yardstick where JAX's own fp32 gradients lie near the bound."""
     jtask = jtasks.build_task(jcfg)
     variables = jax_variables(jcfg, batch)
-    jbatch = jax.tree_util.tree_map(jnp.asarray, batch)
+    with jax.enable_x64(x64):
+        jvars = f64(variables) if x64 else variables
+        jbatch = jax.tree_util.tree_map(jnp.asarray, f64(batch) if x64 else batch)
 
-    def loss_fn(params):
-        v = {net: dict(variables[net], params=p) for net, p in params.items()}
-        loss, (metrics, _, new_stats) = jtask.train_loss(v, jbatch, jax.random.PRNGKey(5),
-                                                         progress)
-        return loss, (metrics, new_stats)
+        def loss_fn(params):
+            v = {net: dict(jvars[net], params=p) for net, p in params.items()}
+            loss, (metrics, _, new_stats) = jtask.train_loss(v, jbatch, jax.random.PRNGKey(5),
+                                                             progress)
+            return loss, (metrics, new_stats)
 
-    params = {net: v['params'] for net, v in variables.items()}
-    (want, (want_metrics, new_stats)), want_grads = jax.jit(jax.value_and_grad(
-        loss_fn, has_aux=True))(params)
+        params = {net: v['params'] for net, v in jvars.items()}
+        (want, (want_metrics, new_stats)), want_grads = jax.jit(jax.value_and_grad(
+            loss_fn, has_aux=True))(params)
+        want_grads = jax.tree_util.tree_map(np.asarray, want_grads)
     task = port_task(jcfg, variables)
     loss, metrics = task.train_loss(to_torch(batch), torch.Generator().manual_seed(5),
                                     progress)

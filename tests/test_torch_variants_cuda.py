@@ -243,19 +243,25 @@ def _backward_gap(nets, inputs, seed=3):
     return worst
 
 
+GENERIC_STEP_BAND = 10      # see generic_step_card_vs_cpu
+
+
 def generic_step_card_vs_cpu(dev, shape=SHAPE, progress=0.5):
     """``GenericSelfSupModel`` from the same weights (disparity heads
     biased to ~5 m, the pose head to a few pixels of motion) and batch, on
     ``dev`` and on the CPU -> {'backward': {network: the worst gradient
     error of its backward over its tensor's largest}, 'step': {network:
-    (the card's relative L2 gradient error against the CPU's, the CPU's
-    fp32 against its fp64)}}.
+    relative L2 gradient errors {'card_cpu': the card's against the CPU's,
+    'cpu_64': the CPU's fp32 against its fp64, 'card_64': the card's
+    against the CPU's fp64, 'card_card': a second card step's against the
+    first (``_PatchLogits``' backward scatters with ``index_add_``, whose
+    atomics add in no fixed order on the card)}}}.
 
     Held: one ``train_step``'s loss and metrics within rtol 1e-4 (but
     ``grad_norm``), and each network's backward from seeded cotangents
     (``RaySurfaceResNet``'s 4 inverse depths and ray surface in training
     mode, ``PoseNet``'s pose vectors) within ``GRAD_RTOL`` of each
-    tensor's largest, phase 8a's bound.  Reported, not held: the whole
+    tensor's largest, phase 8a's bound.  Not held to the CPU's: the whole
     step's gradients, which are ill-conditioned in fp32 on any device: a
     near-tie of the soft argmax multiplies a rounding by up to 1/T = 1e4,
     and ~1 % of the coordinates land within 1e-4 px of a pixel centre,
@@ -265,7 +271,13 @@ def generic_step_card_vs_cpu(dev, shape=SHAPE, progress=0.5):
     fp32 lay 0.065 from its fp64, the loss within 1e-4 (measured on an
     NVIDIA H100 80GB HBM3 at 700 W); the camera's own pieces are held on the card
     by :func:`patch_logits_card_vs_cpu` and
-    :func:`camera_generic_card_vs_fp64`."""
+    :func:`camera_generic_card_vs_fp64`.  The step's gradients are held
+    only against fp64, by a band of the CPU's own fp32 error measured in
+    the same call: the card's within ``GENERIC_STEP_BAND`` times it
+    (ROADMAP L4: the CPU lay 0.065 / 0.107 from fp64, depth / pose; the
+    card 0.065 / 0.075 in some processes and 0.560 / 0.237 in another,
+    8.6x the CPU's, while two card steps in one process lay 6e-7 apart, on
+    an NVIDIA H100 80GB HBM3 at 700 W)."""
     cfg = generic_config()
     host = build_task(cfg, device='cpu')
     set_pose_head_bias(host.pose_net, np.random.RandomState(1))
@@ -276,8 +288,8 @@ def generic_step_card_vs_cpu(dev, shape=SHAPE, progress=0.5):
     batch = selfsup_batch(np.random.RandomState(0), *shape)
     cast = lambda v, f: [f(x) for x in v] if isinstance(v, list) else f(v)
     sides = {}
-    for side, device, dtype in (('card', dev, torch.float32), ('cpu', 'cpu', torch.float32),
-                                ('cpu64', 'cpu', torch.float64)):
+    for side, device, dtype in (('card', dev, torch.float32), ('card2', dev, torch.float32),
+                                ('cpu', 'cpu', torch.float32), ('cpu64', 'cpu', torch.float64)):
         task = build_task(cfg, device=device)
         for net, sd in zip((task.depth_net, task.pose_net), weights):
             net.load_state_dict(sd)
@@ -299,8 +311,13 @@ def generic_step_card_vs_cpu(dev, shape=SHAPE, progress=0.5):
                                lambda d: (on(d, 'rgb'),)),
         'pose': _backward_gap((card_task.pose_net, cpu_task.pose_net),
                               lambda d: (on(d, 'rgb'), on(d, 'rgb_context')))}
-    step = {tag: (float((g_card[tag] - g_cpu[tag]).norm() / g_64[tag].norm()),
-                  float((g_cpu[tag] - g_64[tag]).norm() / g_64[tag].norm())) for tag in g_cpu}
+    g_card2 = sides['card2'][2][1]
+    l2 = lambda a, b, tag: float((a[tag].double() - b[tag].double()).norm() / g_64[tag].norm())
+    step = {tag: {'card_cpu': l2(g_card, g_cpu, tag), 'cpu_64': l2(g_cpu, g_64, tag),
+                  'card_64': l2(g_card, g_64, tag), 'card_card': l2(g_card2, g_card, tag)}
+            for tag in g_cpu}
+    for tag, gaps in step.items():
+        assert gaps['card_64'] <= GENERIC_STEP_BAND * gaps['cpu_64'], (tag, gaps)
     return {'backward': backward, 'step': step}
 
 
