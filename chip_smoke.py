@@ -167,6 +167,16 @@ Run from the repository root, on a machine with one CUDA card and nvcc.
       step against the plain card step on the global batch from the same
       weights and generator (12b's bounds), then 3 timed steps: ms and
       peak a rank.
+   f. ``make_sharded_train_step`` on a ResNet in the same pair: 13d's
+      ``GenericSelfSupModel`` (``RaySurfaceResNet`` 18 + ``PoseNet``) at a
+      global batch of 2 (1 a rank, so each ``BatchNorm2d`` must take the
+      global batch's statistics) at 384x1280, one step against the plain
+      card step on the global batch taken in this process from the same
+      weights and generator: loss rtol 1e-4, the running statistics rtol
+      1e-4, each network's gradients by relative L2 within
+      ``GENERIC_SHARDED_L2`` (the step is ill-conditioned in fp32, ROADMAP
+      L4), both ranks' parameters and statistics bit-equal; then 2 timed
+      steps: ms and peak a rank.
 
 12. Spatial sharding with halo exchange (``parallel/spatial.py``; no kernel
    on these paths: the NMS kernel must launch 0 times).
@@ -202,11 +212,12 @@ Run from the repository root, on a machine with one CUDA card and nvcc.
       wall seconds of both.  Then the same at ``arch.precision:
       bfloat16``: the depth's relative error against the unsharded bf16
       CLI within ``BAND`` times that CLI's own bf16-vs-fp32 gap.
-   11b, 11e, 12b and 12c run as jobs of one pair of spawned ranks (one
-   ``start_ranks`` call), each job counting its own NMS launches; cuDNN's
-   autotuner there times 3 candidates a conv (``PAIR_CUDNN_LIMIT``).  The
-   unsharded CLIs of 12c run first in this process, the other oracles
-   while the ranks start.
+   13a's L4 check (first, in both fresh ranks), 11b, 11e, 11f, 12b and
+   12c run as jobs of one pair of spawned ranks (one ``start_ranks``
+   call), each job counting its own NMS launches; cuDNN's autotuner there
+   times 3 candidates a conv (``PAIR_CUDNN_LIMIT``).  The unsharded CLIs
+   of 12c run first in this process, the other oracles while the ranks
+   start.
 13. The depth networks and tasks beside PackNet-SAN 1A
    (``tests/test_torch_variants_cuda.py``; no kernel on these paths: the
    NMS kernel must launch 0 times).
@@ -224,7 +235,10 @@ Run from the repository root, on a machine with one CUDA card and nvcc.
       and coordinates on pixel centres, where the sampler's derivative
       jumps, part two devices' roundings).
       The step's gradients are also printed against the CPU's fp64 ones,
-      and a second card step against the first (ROADMAP L4).
+      and a second card step against the first (ROADMAP L4), and held
+      within ``GENERIC_STEP_BAND`` times the CPU's own fp32 gap; the same
+      check runs in each of the pair's two fresh ranks (phase 11-12), so
+      three processes a run, each printing its ratio.
       Then ROADMAP L2: the seeded (16,)*6 network on blocky frames
       [4,128,128], ``F.group_norm`` and the two-pass statistics each
       against fp64 on the card.
@@ -283,14 +297,14 @@ from tests.test_torch_canny_cuda import SWEEP as CANNY_SWEEP, canny_card_vs_cpu
 from tests.test_torch_annotate_cuda import (
     annotate_card_vs_cpu, random_frames, task_config)
 from tests.test_torch_dp_cuda import (
-    dp_vs_plain, oracle_gaps, oracle_job, sharded_step_job, start_ranks)
+    dp_vs_plain, oracle_gaps, oracle_job, sharded_step_job, start_ranks, timed_outcome)
 from tests.test_torch_spatial_cuda import (
     card_pair_job, cli_job, forward_gap, gloo_dtype_job, step_gaps)
 from tests.test_torch_train_cuda import write_kitti_tree
 from tests.test_torch_variants_cuda import (
     EVAL_CASES, GENERIC_STEP_BAND, PACKNET01_SELFSUP, camera_generic_card_vs_fp64,
-    eval_card_vs_cpu,
-    generic_step_card_vs_cpu, group_norm_fp64_gaps, patch_logits_card_vs_cpu)
+    eval_card_vs_cpu, generic_step_card_vs_cpu, generic_step_job, group_norm_fp64_gaps,
+    patch_logits_card_vs_cpu)
 from tests.test_torch_nms_kernel import dyadic_patch, gaussian_blur, misaligned
 from tests.test_torch_train_cuda import (
     BAND, GRAD_RTOL, PHOTOMETRIC_BOUND, TASKS, bf16_card_vs_cpu, kitti_intrinsics,
@@ -332,6 +346,18 @@ DDAD_H, DDAD_W = 1216, 1936             # DDAD-DE's frames
 DDAD_SHAPE = (1216, 1920)               # rounded down to a multiple of 32
 DDAD_FRAMES = 2
 SHARDED_B, SHARDED_STEPS = 4, 3        # 11e: the global batch, 2 a rank; timed steps
+GENERIC_B, GENERIC_SHARDED_STEPS = 2, 2  # 11f and 13d: the global batch (1 a rank in 11f)
+# 11f: the sharded generic step's gradients against the plain step's, by
+# relative L2 (of the plain step's norm) of each network: below 1, the
+# gap a zero gradient would show.  Both are fp32 roundings of one
+# ill-conditioned function (ROADMAP L4), which no tighter bound separates:
+# at [2,64,96] the card's fp32 step lay up to 0.560 (depth) / 0.237 (pose)
+# from fp64 by process, the CPU's 0.065 / 0.107, a process's two steps 1e-6
+# apart; at full width the sharded and plain steps lay 0.375 / 0.330 apart
+# (NVIDIA H100 80GB HBM3, 700 W).  A chunk's batch statistics or a missed
+# gather shows in the loss and the running statistics, held at 1e-4, and the
+# CPU tests hold the sharded step's gradients in fp64 (tests/test_torch_dp.py)
+GENERIC_SHARDED_L2 = 1.0
 PAIR_WAIT_S = 900                       # the rank pair's jobs of phases 11 and 12, all told
 # The pair's two fresh processes autotune every conv shape of their jobs at
 # once on the one card: its jobs took 461.9 s timing PyTorch's default of
@@ -998,6 +1024,22 @@ def selfsup_full_batch(dev):
     return batch
 
 
+def generic_config():
+    """13d's and 11f's task: 8c's config as ``GenericSelfSupModel`` on
+    ``RaySurfaceResNet`` 18 + ``PoseNet``."""
+    cfg = selfsup_config()
+    cfg.model.name = 'GenericSelfSupModel'
+    cfg.model.depth_net.name = 'RaySurfaceResNet'
+    cfg.model.depth_net.version = ''
+    return cfg
+
+
+def generic_batch(dev):
+    """8c's batch cut to ``GENERIC_B`` images."""
+    return {k: [x[:GENERIC_B] for x in v] if isinstance(v, list) else v[:GENERIC_B]
+            for k, v in selfsup_full_batch(dev).items()}
+
+
 def phase_train_selfsup(dev):
     return train_full(dev, selfsup_config(), selfsup_full_batch(dev),
                       'phase 8c self-supervised train')
@@ -1617,9 +1659,10 @@ def step_band(got, want16, want32):
 
 
 def phase_rank_pair(dev, request, want):
-    """11b, 11e, 12b and 12c, fp32 and bf16: one pair of spawned ranks over
-    gloo sharing the card runs every job, their oracles computed first on
-    the card alone -> {path: NMS launches}."""
+    """13a's L4 check, 11b, 11e, 11f, 12b and 12c, fp32 and bf16: one pair
+    of spawned ranks over gloo sharing the card runs every job, their
+    oracles computed on the card in this process while the ranks start ->
+    {path: NMS launches}."""
     import shutil
     for name in ('ddad', 'ddad_plain', 'ddad_spatial', 'ddad_plain16', 'ddad_spatial16'):
         shutil.rmtree(os.path.join(SPATIAL_DIR, name), ignore_errors=True)
@@ -1635,12 +1678,19 @@ def phase_rank_pair(dev, request, want):
     cfg16.arch.precision = 'bfloat16'
     config16 = os.path.join(SPATIAL_DIR, 'train_bf16_flip0.yaml')
     cfg16.save_yaml(config16)
+    gcfg = generic_config()
+    generic_yaml = os.path.join(DP_DIR, 'generic.yaml')
+    gcfg.save_yaml(generic_yaml)
     batch = full_width_batch(dev)
     batch4 = full_width_batch(dev, seed=4, b=SHARDED_B)
-    paths = {k: os.path.join(SPATIAL_DIR, f'{k}.pt') for k in ('batch', 'batch4', 'request')}
+    gbatch = {k: [x.cpu() for x in v] if isinstance(v, list) else v.cpu()
+              for k, v in generic_batch(dev).items()}
+    paths = {k: os.path.join(SPATIAL_DIR, f'{k}.pt')
+             for k in ('batch', 'batch4', 'request', 'generic')}
     torch.save({k: v.cpu() for k, v in batch.items()}, paths['batch'])
     torch.save({k: v.cpu() for k, v in batch4.items()}, paths['batch4'])
     torch.save(request, paths['request'])
+    torch.save(gbatch, paths['generic'])
     write_split(os.path.join(SPATIAL_DIR, 'ddad'), DDAD_FRAMES, DDAD_H, DDAD_W, seed=12)
 
     # the oracles: the unsharded CLIs alone on the card (their wall seconds
@@ -1655,7 +1705,8 @@ def phase_rank_pair(dev, request, want):
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    jobs = {'gloo bf16': (gloo_dtype_job, {'device': 'cuda:0'}),
+    jobs = {'13a L4': (generic_step_job, {'device': 'cuda:0'}),
+            'gloo bf16': (gloo_dtype_job, {'device': 'cuda:0'}),
             '11b': (oracle_job, {'device': 'cuda:0', 'full_config': dp_config,
                                  'full_batch': paths['batch']}),
             '12b': (card_pair_job, {'full_config': config, 'full_batch': paths['batch'],
@@ -1668,19 +1719,23 @@ def phase_rank_pair(dev, request, want):
                                    'device': 'cuda:0'}),
             '11e': (sharded_step_job, {'config': config, 'batch': paths['batch4'],
                                        'device': 'cuda:0', 'timed_steps': SHARDED_STEPS,
-                                       'oracle': True})}
+                                       'oracle': True}),
+            '11f': (sharded_step_job, {'config': generic_yaml, 'batch': paths['generic'],
+                                       'device': 'cuda:0',
+                                       'timed_steps': GENERIC_SHARDED_STEPS})}
     ranks = start_ranks(list(jobs.values()), 2, os.path.join(SPATIAL_DIR, 'gloo'),
                         threads=max(os.cpu_count() // 2, 1), wait_s=PAIR_WAIT_S,
                         cudnn_benchmark_limit=PAIR_CUDNN_LIMIT)
     try:
         plain_step = step_outcome(cfg, batch, dev)
         plain_step16 = step_outcome(cfg16, batch, dev)
+        plain_generic = timed_outcome(gcfg, gbatch, make_train_step, dev)
         net16 = serve.build(device=dev, seed=0, dtype=torch.bfloat16)
         with torch.no_grad():
             want16 = [d.float().cpu() for d in net16(
                 request['rgb'].to(dev, torch.bfloat16),
                 request['lidar'].to(dev, torch.bfloat16))['inv_depths']]
-        del net16, batch, batch4
+        del net16, batch, batch4, gbatch
         plain_launches = nms_kernel.launches
         torch.cuda.empty_cache()
     finally:
@@ -1710,7 +1765,35 @@ def phase_rank_pair(dev, request, want):
               f'all-reduce alone {full["all_reduce_ms"]:.3f} ms (host clock); losses '
               + ', '.join(f'{v:.6f}' for v in full['losses']))
 
+    for r, gaps in enumerate(res['13a L4']):
+        print(f'phase 13a L4 in pair rank {r} (a fresh process, {PAIR_CUDNN_LIMIT} cuDNN '
+              f'candidates a conv): GenericSelfSupModel train_step card vs cpu [2,64,96]: the '
+              f'card\'s gradients against the cpu\'s fp64 over the cpu fp32\'s (card_64 / '
+              f'cpu_64, bound {GENERIC_STEP_BAND}x) '
+              + ', '.join(f'{tag} {g["card_64"]:.5f} / {g["cpu_64"]:.5f} = '
+                          f'{g["card_64"] / g["cpu_64"]:.3f}' for tag, g in gaps['step'].items())
+              + '; backward ' + ', '.join(f'{tag} {e:.3e}' for tag, e in gaps['backward'].items())
+              + f' (bound {GRAD_RTOL:g})')
+
+    gaps = generic_sharded_gaps(res['11f'], plain_generic)
+    for r, out in enumerate(res['11f']):
+        check(all(np.isfinite(out['losses'])), f'11f rank {r} losses {out["losses"]}')
+        print(f'phase 11f rank {r} of 2 over gloo on one card, make_sharded_train_step, '
+              f'GenericSelfSupModel (RaySurfaceResNet 18 + PoseNet, 13d\'s config) {H}x{W} '
+              f'global b{GENERIC_B} (1 a rank) fp32: one step against the plain card step on '
+              f'the global batch (taken in this process): loss {gaps["loss"]:.3e} (rtol 1e-4), '
+              f'BatchNorm2d running statistics at {gaps["stats"]:.3f} of their tolerance (rtol 1e-4, '
+              f'atol 1e-6), '
+              f'gradients by relative L2 '
+              + ', '.join(f'{tag} {gaps[tag]:.4f}' for tag in ('depth', 'pose'))
+              + f' (bound {GENERIC_SHARDED_L2:g})'
+              + f'; both ranks\' parameters and statistics bit-equal; {len(out["ms"])} steps '
+              'after it: ' + ', '.join(f'{m:.3f}' for m in out['ms'])
+              + f' ms by CUDA events, peak {out["peak"] / 2**30:.3f} GiB a rank; losses '
+              + ', '.join(f'{v:.6f}' for v in out['losses']))
+
     sharded_oracle = res['11e'][0]['oracle']
+    sharded_oracle = (sharded_oracle['loss'], sharded_oracle['grads'], sharded_oracle['state'])
     for r, out in enumerate(res['11e']):
         gaps = step_gaps(out, sharded_oracle)
         check(all(np.isfinite(out['losses'])), f'11e rank {r} losses {out["losses"]}')
@@ -1796,14 +1879,46 @@ def phase_rank_pair(dev, request, want):
               + ', '.join(f'rank {r} {c["seconds"]:.1f} s' for r, c in enumerate(cli))
               + f', the unsharded CLI {plain_cli_s[precision]:.1f} s (one process); nms '
               f'launches ' + ', '.join(str(c['nms_launches']) for c in cli))
-    print(f'phase 11b, 11e, 12b and 12c (fp32 and bf16): {len(jobs)} jobs on one pair of '
-          f'ranks, {ranks_s:.1f} s from spawn to end (cuDNN\'s autotuner timing '
+    print(f'phase 13a L4, 11b, 11e, 11f, 12b and 12c (fp32 and bf16): {len(jobs)} jobs on one '
+          f'pair of ranks, {ranks_s:.1f} s from spawn to end (cuDNN\'s autotuner timing '
           f'{PAIR_CUDNN_LIMIT} candidates a conv), the slower rank\'s seconds by job: '
           + ', '.join(f'{k} {v:.1f}' for k, v in job_s.items())
           + f'; the unsharded oracles\' NMS launches {plain_launches}')
     check(plain_launches == 0, f'NMS kernel launched {plain_launches} times in the oracles')
     return {name: sum(out['nms_launches'] for out in outs) for name, outs in res.items()
             if name != 'gloo bf16'}
+
+
+def generic_sharded_gaps(results, plain):
+    """11f's ranks (``sharded_step_job``) against the plain card step on the
+    global batch (``timed_outcome``) and each other -> the loss's relative
+    error, the BatchNorm2d running statistics' worst error over their
+    tolerance (rtol 1e-4, atol 1e-6), each
+    network's gradient error by relative L2; each held (see
+    ``GENERIC_SHARDED_L2``)."""
+    first = results[0]
+    for r, res in enumerate(results[1:], 1):
+        check(res['loss'] == first['loss'], f'11f rank {r} loss {res["loss"]} != {first["loss"]}')
+        for k, v in first['state'].items():
+            check(torch.equal(res['state'][k], v), f'11f rank {r} {k} differs from rank 0')
+    loss = abs(first['loss'] - plain['loss']) / abs(plain['loss'])
+    check(loss <= 1e-4, f'11f loss {first["loss"]} against {plain["loss"]}')
+    stats = [k for k in plain['state'] if k.endswith(('running_mean', 'running_var'))]
+    check(bool(stats), '11f: no running statistics')
+    worst = 0.0
+    for k in stats:
+        got, want = first['state'][k].double(), plain['state'][k].double()
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6,
+                                   msg=lambda m, k=k: f'11f {k}: {m}')
+        worst = max(worst, float(((got - want).abs() / (1e-6 + 1e-4 * want.abs())).max()))
+    out = {'loss': loss, 'stats': worst}
+    for tag, key in (('depth', 'grads'), ('pose', 'pose_grads')):
+        flat = lambda d: torch.cat([d[n].double().reshape(-1) for n in sorted(plain[key])])
+        out[tag] = float((flat(first[key]) - flat(plain[key])).norm() / flat(plain[key]).norm())
+        check(out[tag] <= GENERIC_SHARDED_L2,
+              f'11f {tag} gradients {out[tag]} from the plain step\'s, bound '
+              f'{GENERIC_SHARDED_L2}')
+    return out
 
 
 def phase_variants_small(dev):
@@ -1837,7 +1952,9 @@ def phase_variants_small(dev):
           'card step vs the first (ROADMAP L4): '
           + ', '.join(f'{tag} ' + ' / '.join(f'{g[k]:.3e}' for k in ('card_cpu', 'cpu_64',
                                                                      'card_64', 'card_card'))
-                      for tag, g in gaps['step'].items()))
+                      for tag, g in gaps['step'].items())
+          + '; card_64 / cpu_64 ' + ', '.join(f'{tag} {g["card_64"] / g["cpu_64"]:.3f}'
+                                               for tag, g in gaps['step'].items()))
     l2 = group_norm_fp64_gaps(dev)
     print('phase 13a L2: the seeded (16,)*6 PackNet-SAN 1A on blocky frames [4,128,128] on '
           'the card, largest relative error against its fp64 forward at scales 0-3: '
@@ -1947,12 +2064,7 @@ def phase_packnet01_train(dev):
 def phase_generic_train(dev):
     """13d: GenericSelfSupModel (RaySurfaceResNet 18 + PoseNet) on 8c's
     batch cut to 2 images, and ``project_generic``'s time in one step."""
-    cfg = selfsup_config()
-    cfg.model.name = 'GenericSelfSupModel'
-    cfg.model.depth_net.name = 'RaySurfaceResNet'
-    cfg.model.depth_net.version = ''
-    batch = {k: [x[:2] for x in v] if isinstance(v, list) else v[:2]
-             for k, v in selfsup_full_batch(dev).items()}
+    cfg, batch = generic_config(), generic_batch(dev)
     out = train_full(dev, cfg, batch, 'phase 13d GenericSelfSupModel train', warmup=1, steps=3)
     task = build_task(cfg, device=dev)
     state = create_train_state(cfg, to_train_device(task.depth_net, dev), pose_net=task.pose_net)
@@ -2070,6 +2182,7 @@ def main():
     pair = timed('11b+11e+12b-c', phase_rank_pair, dev, request, want12)
     launches11.update({k: v for k, v in pair.items() if k.startswith('11')})
     launches12.update({k: v for k, v in pair.items() if k.startswith('12')})
+    check(pair['13a L4'] == 0, f'NMS kernel launched {pair["13a L4"]} times in the L4 jobs')
     for name, n in list(launches11.items()) + list(launches12.items()):
         check(n == 0, f'NMS kernel launched {n} times in phase {name}')
     print(f'phases 11 and 12 wall time {time.perf_counter() - t11:.1f} s')
@@ -2098,7 +2211,7 @@ def main():
         'launches': (launches4 + launches5 + launches6 + launches7 + launches8 + launches9
                      + launches10a + launches10b + launches10c + sum(launches10.values())
                      + sum(launches11.values()) + sum(launches12.values())
-                     + sum(launches13.values()) + launches14),
+                     + sum(launches13.values()) + pair['13a L4'] + launches14),
         'launches_by_path': {'serve': launches4, 'annotate': launches5,
                              'infer': launches6, 'train': launches7,
                              'train_dee_completion_selfsup': launches8,
@@ -2111,6 +2224,7 @@ def main():
                              'train_dp_cli': launches11['11c'],
                              'infer_dp_cli': launches11['11d'],
                              'train_sharded_gloo2': launches11['11e'],
+                             'train_sharded_resnet_gloo2': launches11['11f'],
                              'spatial_infer_nccl1': launches12['12a'],
                              'spatial_train_gloo2': launches12['12b'],
                              'spatial_infer_cli_gloo2': launches12['12c'],

@@ -21,12 +21,26 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from mindtheedge_tpu_torch.parallel import spatial
+
 
 class BatchNorm2d(nn.BatchNorm2d):
     """flax ``nn.BatchNorm`` (momentum 0.9, eps 1e-5, ``resnet.py:19-27``):
     in training the batch statistics normalise and the running variance
     takes the *biased* batch variance (torch's own BatchNorm takes the
-    unbiased one); in eval the running statistics normalise."""
+    unbiased one); in eval the running statistics normalise.
+
+    Under ``space`` (a ``parallel.spatial.Space``) the training statistics
+    cover the samples of every block, as ``ops/sparse.MaskedBatchNorm``'s
+    do: the count and the per-channel sum are summed over the blocks, then
+    the squared deviations from the global mean, both through the
+    differentiable ``space_all_reduce``; the output is normalised by the
+    global mean and biased variance through autograd, and the running
+    statistics take them, equal on every block.  The sums are at least
+    fp32.  ``parallel/mesh.make_sharded_train_step`` sets a ``space`` of
+    every rank, one chunk of the batch each."""
+
+    space = None
 
     def __init__(self, num_features):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
@@ -34,12 +48,29 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if self.space is not None:
+            return self._space_forward(x)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            self._update(mean, var)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+    def _update(self, mean, var):
+        with torch.no_grad():
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
             self.num_batches_tracked.add_(1)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+    def _space_forward(self, x):
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        count = xf.new_tensor([x.numel() // x.shape[1]])
+        both = spatial.space_all_reduce(torch.cat([count, xf.sum((0, 2, 3))]), self.space)
+        count, mean = both[0], both[1:] / both[0]
+        centred = xf - mean[:, None, None]
+        var = spatial.space_all_reduce((centred ** 2).sum((0, 2, 3)), self.space) / count
+        self._update(mean, var)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        return (centred * scale[:, None, None] + self.bias[:, None, None]).to(x.dtype)
 
 
 def _conv(cin, cout, k, stride=1):

@@ -46,14 +46,18 @@ depth net on this rank's block of the frame.
 
 ``make_sharded_train_step(task)`` is the JAX module's
 ``make_sharded_train_step`` (``mesh.py:101-128``): the plain step on the
-*global* batch, its depth net run on this rank's chunk of it.  It differs
-from ``make_dp_train_step``, whose ranks each average the loss over their
-own chunk: the pooled losses are not linear in the split.
+*global* batch, its depth net run on this rank's chunk of it, every batch
+norm of the depth net (the SAN's and the ResNets') taking the global
+batch's statistics, and every per-sample output gathered, so any task of
+the registry steps through it.  It differs from ``make_dp_train_step``,
+whose ranks each average the loss over their own chunk: the pooled losses
+are not linear in the split.
 """
 
 import torch
 import torch.distributed as dist
 
+from mindtheedge_tpu_torch.models.resnet import BatchNorm2d
 from mindtheedge_tpu_torch.ops.sparse import MaskedBatchNorm
 from mindtheedge_tpu_torch.parallel import spatial
 from mindtheedge_tpu_torch.parallel.distributed import rank, world_size
@@ -165,6 +169,10 @@ def make_spatial_train_step(task, space):
     return make_dp_train_step(task)
 
 
+# the depth nets' per-sample outputs, [B,...] tensors or lists of them
+_SAMPLE_OUTPUTS = ('inv_depths', 'inv_depths_rgbd', 'ray_surface')
+
+
 def make_sharded_train_step(task):
     """The plain step on the global batch, the depth net sharded over the
     batch (``mindtheedge_tpu/parallel/mesh.py:101-128``, where XLA runs the
@@ -173,15 +181,19 @@ def make_sharded_train_step(task):
     the global batch on every rank, its size a multiple of the world size.
 
     The depth net runs on this rank's contiguous chunk of the batch
-    (``task.net_input_transform``, after the lr-flip); its inverse-depth
-    pyramids are gathered over the ranks by a differentiable tiled
-    all-gather and ``depth_loss`` averaged (``task.output_hook``), so every
+    (``task.net_input_transform``, after the lr-flip); its per-sample
+    outputs (the inverse-depth pyramids of both passes, a
+    ``RaySurfaceResNet``'s ``ray_surface``) are gathered over the ranks by a
+    differentiable tiled all-gather and ``depth_loss`` averaged
+    (``task.output_hook``; an output the step does not know raises rather
+    than reach the losses as one rank's chunk), so every
     loss runs on the whole batch on every rank; then
     :func:`make_dp_train_step`'s one mean of the gradients (each chunk's
     carries the factor n of the gather's backward, as in
     :func:`make_spatial_train_step`).  Where the plain step could part:
 
-    * the SAN's ``MaskedBatchNorm`` takes its training statistics over the
+    * every batch norm of the depth net, the SAN's ``MaskedBatchNorm`` and
+      the ResNets' ``BatchNorm2d``, takes its training statistics over the
       global batch, as XLA computes them over the sharded batch as one
       (its ``space`` is a ``Space`` of every rank: count, sum and squared
       deviations all-reduced);
@@ -190,17 +202,12 @@ def make_sharded_train_step(task):
       chunk's (``PackNetSlimEncoder.batch_shard``); the lr-flip is one draw
       for the whole batch.  So the draws are the plain step's.
 
-    A depth network with another batch norm (the ResNets' ``BatchNorm2d``)
-    would normalise by its chunk's statistics: it raises."""
+    The pose net runs on the whole batch on every rank, in eval mode
+    (``tasks.BaseTask.run_pose``): its batch norms need no space."""
     n, me = world_size(), rank()
-    net = task.depth_net
-    if any(isinstance(m, torch.nn.BatchNorm2d) for m in net.modules()):
-        raise ValueError(f'make_sharded_train_step reduces the statistics of the SAN\'s '
-                         f'MaskedBatchNorm over the ranks; {type(net).__name__}\'s '
-                         'BatchNorm2d would take its chunk\'s statistics')
     chunks = spatial.Space(n)       # one block a rank: the batch's chunks
-    for m in net.modules():
-        if isinstance(m, MaskedBatchNorm):
+    for m in task.depth_net.modules():
+        if isinstance(m, (MaskedBatchNorm, BatchNorm2d)):
             m.space = chunks
         if hasattr(m, 'batch_shard'):
             m.batch_shard = (me, n)
@@ -213,10 +220,17 @@ def make_sharded_train_step(task):
         return x.chunk(n)[me]
 
     def gather_outputs(out):
+        unknown = set(out) - set(_SAMPLE_OUTPUTS) - {'depth_loss'}
+        if unknown:
+            raise ValueError(f'make_sharded_train_step does not know the depth net\'s '
+                             f'outputs {sorted(unknown)}: gather or reduce them over the ranks')
+        gather = lambda d: spatial._Gather.apply(d, 0, chunks.block_line)
         out = dict(out)
-        for key in ('inv_depths', 'inv_depths_rgbd'):
-            if key in out:
-                out[key] = [spatial._Gather.apply(d, 0, chunks.block_line) for d in out[key]]
+        for key in _SAMPLE_OUTPUTS:
+            if torch.is_tensor(out.get(key)):
+                out[key] = gather(out[key])
+            elif key in out:
+                out[key] = [gather(d) for d in out[key]]
         if 'depth_loss' in out:
             out['depth_loss'] = spatial.space_all_reduce(out['depth_loss'], chunks, mean=True)
         return out

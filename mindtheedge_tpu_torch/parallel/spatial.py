@@ -346,8 +346,12 @@ def shard_network(net, space):
     plain network again) -> ``net``.  Parameters and buffers do not change.
     The PackNet networks (PackNet-SAN, ``PackNet01``, ``PackNetSlim01``)
     are built of such blocks; a network without any (the ResNets, as in
-    the JAX package) raises (``spatial.py:260-261``)."""
-    blocks = [m for m in net.modules() if hasattr(m, 'space')]
+    the JAX package) raises (``spatial.py:260-261``).  The ResNets'
+    ``BatchNorm2d`` takes a ``space`` too, but only the batch-sharded step
+    sets it (``parallel/mesh.make_sharded_train_step``): their convs do not
+    exchange halos."""
+    from mindtheedge_tpu_torch.models.resnet import BatchNorm2d
+    blocks = [m for m in net.modules() if hasattr(m, 'space') and not isinstance(m, BatchNorm2d)]
     if not blocks:
         raise ValueError(f'{type(net).__name__} has no spatial support')
     for m in blocks:

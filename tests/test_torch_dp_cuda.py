@@ -316,26 +316,39 @@ def _full_width_steps(config, batch_path, steps, device):
             'parameters': sum(p.numel() for p in state.parameters())}
 
 
-def timed_outcome(cfg, batch, make_step, dev, timed_steps=0, weights=None):
+def timed_outcome(cfg, batch, make_step, dev, timed_steps=0, weights=None,
+                  pose_weights=None, dtype=torch.float32):
     """One step made by ``make_step(task)`` of ``cfg``'s task (its seeded
-    weights, or the depth state dict at ``weights``) on ``batch`` (whole
-    frames, the global batch) on ``dev``, generator seed 7 as
-    ``step_outcome``; then ``timed_steps`` more, each timed by CUDA events,
-    and the peak memory over them -> {'loss', 'metrics', 'grads', 'state',
-    and with ``timed_steps`` 'ms', 'peak', 'losses'}."""
-    batch = {k: v.to(dev) for k, v in batch.items()}
+    weights, or the depth and pose state dicts at ``weights`` and
+    ``pose_weights``) on ``batch`` (whole frames, the global batch; lists
+    of context frames too) on ``dev``, networks and batch in ``dtype``,
+    generator seed 7 as ``step_outcome``; then ``timed_steps`` more, each
+    timed by CUDA events, and the peak memory over them -> {'loss',
+    'metrics', 'grads', 'state', with a pose net 'pose_grads', and with
+    ``timed_steps`` 'ms', 'peak', 'losses'}."""
+    to_dev = lambda x: x.to(dev, dtype) if x.is_floating_point() else x.to(dev)
+    batch = {k: [to_dev(x) for x in v] if isinstance(v, list) else to_dev(v)
+             for k, v in batch.items()}
     task = build_task(cfg, device=dev)
     if weights is not None:
         task.depth_net.load_state_dict(torch.load(weights, weights_only=True), strict=True)
+    if pose_weights is not None:
+        task.pose_net.load_state_dict(torch.load(pose_weights, weights_only=True), strict=True)
+    for net in (task.depth_net, task.pose_net):
+        if net is not None:
+            net.to(dtype)
     state = create_train_state(cfg, to_train_device(task.depth_net, dev),
                                pose_net=task.pose_net)
     step = make_step(task)
     gen = torch.Generator(dev).manual_seed(7)
     metrics = step(state, batch, gen)
+    grads = lambda net: {n: p.grad.cpu().clone() for n, p in net.named_parameters()}
     out = {'loss': float(metrics['loss']),
            'metrics': {k: float(v) for k, v in metrics.items()},
-           'grads': {n: p.grad.cpu().clone() for n, p in task.depth_net.named_parameters()},
+           'grads': grads(task.depth_net),
            'state': cpu_tree(task.depth_net.state_dict())}
+    if task.pose_net is not None:
+        out['pose_grads'] = grads(task.pose_net)
     if timed_steps:
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -353,23 +366,47 @@ def timed_outcome(cfg, batch, make_step, dev, timed_steps=0, weights=None):
 
 
 def sharded_step_job(rank, world, config, batch, weights=None, device='cpu', timed_steps=0,
-                     oracle=False):
+                     oracle=False, pose_weights=None, dtype=torch.float32):
     """:func:`timed_outcome` of ``make_sharded_train_step`` for the task of
     the yaml ``config`` on the global batch in ``batch`` (a ``torch.save``d
     dict; every rank holds all of it), and the NMS kernel's launches in
     this job alone; with ``oracle``, rank 0 then also takes the plain step
-    on the global batch alone (``step_outcome``: the same seeded weights
-    and generator) -> 'oracle'."""
+    on the global batch alone (:func:`timed_outcome` of ``train_step``: the
+    same weights and generator) -> 'oracle'."""
     from mindtheedge_tpu_torch.ops.cuda import nms_kernel
+    from mindtheedge_tpu_torch.training.train_step import make_train_step
     nms_kernel.launches = 0
     cfg = get_cfg_defaults()
     cfg.merge_from_file(config)
     data = torch.load(batch, weights_only=True)
-    out = timed_outcome(cfg, data, make_sharded_train_step, device, timed_steps, weights)
+    kwargs = {'weights': weights, 'pose_weights': pose_weights, 'dtype': dtype}
+    out = timed_outcome(cfg, data, make_sharded_train_step, device, timed_steps, **kwargs)
     if oracle and rank == 0:
-        out['oracle'] = step_outcome(cfg, data, device)[:3]
+        out['oracle'] = timed_outcome(cfg, data, make_train_step, device, **kwargs)
     out['nms_launches'] = nms_kernel.launches
     return out
+
+
+def batch_norm_job(rank, world, x, cotangent, weight, bias):
+    """``models/resnet.BatchNorm2d`` in training under a ``Space`` of every
+    rank, on this rank's chunk of the global NCHW batch ``x`` (numpy, as
+    ``weight``, ``bias`` and the output's ``cotangent``) -> its output,
+    the gradients of <output, cotangent> with respect to its input, weight
+    and bias, and its running statistics after the step."""
+    from mindtheedge_tpu_torch.models.resnet import BatchNorm2d
+    from mindtheedge_tpu_torch.parallel.spatial import Space
+    bn = BatchNorm2d(x.shape[1]).train()
+    with torch.no_grad():
+        bn.weight.copy_(torch.from_numpy(weight))
+        bn.bias.copy_(torch.from_numpy(bias))
+    bn.space = Space(world)
+    mine = lambda a: torch.from_numpy(np.array_split(a, world)[rank])
+    xr = mine(x).requires_grad_()
+    y = bn(xr)
+    (y * mine(cotangent)).sum().backward()
+    return {'y': y.detach(), 'x_grad': xr.grad, 'weight_grad': bn.weight.grad,
+            'bias_grad': bn.bias.grad, 'running_mean': bn.running_mean,
+            'running_var': bn.running_var}
 
 
 # -- the checks -----------------------------------------------------------------

@@ -123,8 +123,12 @@ def jax_variables(jcfg, batch, seed=0):
     """Perturbed JAX variables of the task's networks, with the pose and
     ResNet depth heads of :func:`pose_head_bias` and :func:`depth_head_bias`."""
     jtask = jtasks.build_task(jcfg)
-    variables = jax.tree_util.tree_map(
-        np.asarray, jax.jit(jtask.init)(jax.random.PRNGKey(seed), batch))
+    return biased_variables(jax.tree_util.tree_map(
+        np.asarray, jax.jit(jtask.init)(jax.random.PRNGKey(seed), batch)), seed)
+
+
+def biased_variables(variables, seed=0):
+    """:func:`jax_variables` of the networks' initial ``variables`` (numpy)."""
     rng = np.random.RandomState(seed + 1)
     out = {}
     for net, v in variables.items():
