@@ -1,0 +1,7 @@
+"""The device's idle share of the profiled window, serving."""
+
+from portbench.readers import idle_pct
+
+
+def read(ctx):
+    return idle_pct(ctx, 'infer')

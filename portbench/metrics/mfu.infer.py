@@ -1,0 +1,7 @@
+"""The whole request's share of the precision's peak FLOP rate."""
+
+from portbench.readers import mfu_pct
+
+
+def read(ctx):
+    return mfu_pct(ctx, 'infer')
