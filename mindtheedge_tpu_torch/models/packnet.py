@@ -19,6 +19,7 @@ from mindtheedge_tpu_torch.ops.blocks import (
     ConvBlock, InvDepthHead, PackLayerConv3d, ResidualBlock, UnpackLayerConv3d)
 from mindtheedge_tpu_torch.ops.packing import upsample_nearest2x
 from mindtheedge_tpu_torch.ops.sparse import MinkConv, SparseDepthEncoder
+from mindtheedge_tpu_torch.utils.profiling import span
 
 # Encoder/decoder widths (PackNetSAN01.py:179-184)
 SLIM_CHANNELS = (32, 32, 64, 128, 256, 512)     # PackNetSlim / PackNetSAN
@@ -190,6 +191,7 @@ class PackNetSAN(nn.Module):
     The module computes in the dtype of its parameters and inputs: bf16
     where ``tasks.BaseTask.run_depth`` hands it bf16 casts of its fp32
     parameters, or where :func:`to_device` casts it once for serving.
+    A call is the span ``mte.net.forward`` (``utils/profiling.py``).
     """
 
     def __init__(self, channels=SLIM_CHANNELS, version='1A', input_channels=3,
@@ -233,26 +235,27 @@ class PackNetSAN(nn.Module):
         return self._region(self.decoder, x5p, skips), skips + [x5p]
 
     def forward(self, rgb, input_depth=None, generator=None, rgb_edge=None):
-        if self.input_channels == 4:
-            if rgb_edge is None:
-                raise ValueError('PackNetSAN with input_channels 4 needs rgb_edge [B,H,W,1]')
-            rgb = torch.cat([rgb, rgb_edge], -1)
-        rgb, lidar = _nchw(rgb), _nchw(input_depth)
-        if not self.training:
-            inv_depths = _nhwc(self.run_network(rgb, lidar)[0])
+        with span('mte.net.forward'):
             if self.input_channels == 4:
-                inv_depths[0] = inv_depths[0] * rgb_edge
-            return {'inv_depths': inv_depths}
-        inv_rgb, feat_rgb = self.run_network(rgb, None, generator)
-        out = {'inv_depths': _nhwc(inv_rgb)}
-        if lidar is None:
+                if rgb_edge is None:
+                    raise ValueError('PackNetSAN with input_channels 4 needs rgb_edge [B,H,W,1]')
+                rgb = torch.cat([rgb, rgb_edge], -1)
+            rgb, lidar = _nchw(rgb), _nchw(input_depth)
+            if not self.training:
+                inv_depths = _nhwc(self.run_network(rgb, lidar)[0])
+                if self.input_channels == 4:
+                    inv_depths[0] = inv_depths[0] * rgb_edge
+                return {'inv_depths': inv_depths}
+            inv_rgb, feat_rgb = self.run_network(rgb, None, generator)
+            out = {'inv_depths': _nhwc(inv_rgb)}
+            if lidar is None:
+                return out
+            inv_rgbd, feat_rgbd = self.run_network(rgb, lidar, generator)
+            out['inv_depths_rgbd'] = _nhwc(inv_rgbd)
+            out['depth_loss'] = sum(
+                torch.mean((d.detach().float() - r.float()) ** 2)
+                for d, r in zip(feat_rgbd, feat_rgb)) / len(feat_rgbd)
             return out
-        inv_rgbd, feat_rgbd = self.run_network(rgb, lidar, generator)
-        out['inv_depths_rgbd'] = _nhwc(inv_rgbd)
-        out['depth_loss'] = sum(
-            torch.mean((d.detach().float() - r.float()) ** 2)
-            for d, r in zip(feat_rgbd, feat_rgb)) / len(feat_rgbd)
-        return out
 
 
 class PackNet01(nn.Module):

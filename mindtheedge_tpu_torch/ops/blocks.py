@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from mindtheedge_tpu_torch.ops.packing import pack2d, unpack2d
 from mindtheedge_tpu_torch.parallel import spatial
+from mindtheedge_tpu_torch.utils.profiling import span
 
 
 class GroupNorm(nn.GroupNorm):
@@ -142,7 +143,8 @@ class Conv3dOverChannels(nn.Conv3d):
 
     [B,D,H,W] -> [B,d*D,H,W]: output channel feat*D + depth, with the bias of
     feature f on every depth of f (``blocks.py:636-654, 706``).  Zero pad 1
-    on all three axes.
+    on all three axes.  The conv is the span ``mte.net.conv3d``
+    (``utils/profiling.py``).
     """
 
     space = None
@@ -152,8 +154,9 @@ class Conv3dOverChannels(nn.Conv3d):
 
     def forward(self, x):
         b, depth, h, w = x.shape
-        y = spatial.sharded_conv(x.unsqueeze(1), self.weight, self.bias,  # [B,d,D,H,W]
-                                 self.space)
+        with span('mte.net.conv3d'):
+            y = spatial.sharded_conv(x.unsqueeze(1), self.weight, self.bias,  # [B,d,D,H,W]
+                                     self.space)
         return y.reshape(b, self.out_channels * depth, h, w)
 
 

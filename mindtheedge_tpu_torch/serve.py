@@ -25,6 +25,7 @@ from mindtheedge_tpu_torch.ops.wire import (
     encode_depth_u8, encode_depth_u16, pack_edges)
 from mindtheedge_tpu_torch.ops.cuda.nms_kernel import non_max_suppression
 from mindtheedge_tpu_torch.utils.depth import inv2depth
+from mindtheedge_tpu_torch.utils.profiling import count, span
 
 _DEPTH_ENCODERS = {'u16': encode_depth_u16, 'u8': encode_depth_u8}
 
@@ -37,21 +38,45 @@ def build(channels=SLIM_CHANNELS, device=None, seed=0, dtype=torch.float32):
     return to_device(init_weights(PackNetSAN(tuple(channels)), seed), device, dtype)
 
 
-@torch.no_grad()
-def depth_edges(model, rgb, lidar):
-    """rgb [B,H,W,3] float in [0,1], lidar [B,H,W,1] metres (0 = no point),
-    in the model's dtype -> {'depth': [B,H,W], 'edges': [B,H,W]}, fp32."""
-    inv_depth = model(rgb, lidar)['inv_depths'][0][..., 0].float()
+def _inv_depth(model, rgb, lidar):
+    return model(rgb, lidar)['inv_depths'][0][..., 0].float()
+
+
+def _maps(inv_depth):
     prob = torch.clamp(inv_depth / 2.0, 0.0, 1.0)
     return {'depth': inv2depth(inv_depth), 'edges': non_max_suppression(prob)}
 
 
 @torch.no_grad()
+def depth_edges(model, rgb, lidar):
+    """rgb [B,H,W,3] float in [0,1], lidar [B,H,W,1] metres (0 = no point),
+    in the model's dtype -> {'depth': [B,H,W], 'edges': [B,H,W]}, fp32."""
+    inv_depth = _inv_depth(model, rgb, lidar)
+    with span('mte.serve.post'):
+        return _maps(inv_depth)
+
+
+def _upload(t, device, dtype=None):
+    """``t`` on ``device`` (in ``dtype``), counting the bytes copied from the
+    host (a host tensor is cast before its copy)."""
+    count('h2d_bytes', 0 if t.device == device else t.numel() * (dtype or t.dtype).itemsize)
+    return t.to(device, dtype)
+
+
+@torch.no_grad()
 def serve(model, rgb_u8, lidar, wire='u16'):
     """One request: uint8 rgb [B,H,W,3] and lidar [B,H,W,1], on any device
-    -> (depth on the wire, edges bit-packed [B,H,W/8]) on the model's device."""
+    -> (depth on the wire, edges bit-packed [B,H,W/8]) on the model's device:
+    the steps of :func:`depth_edges` on the uploaded inputs, then the wire
+    encodes; spans ``mte.serve.request``, ``mte.serve.input`` (with the
+    counter ``h2d_bytes``) and ``mte.serve.post`` (``utils/profiling.py``)."""
     encode = _DEPTH_ENCODERS[wire]
     weight = next(model.parameters())
-    rgb = (rgb_u8.to(weight.device).to(torch.float32) / 255.0).to(weight.dtype)
-    out = depth_edges(model, rgb, lidar.to(weight.device, weight.dtype))
-    return encode(out['depth']), pack_edges(out['edges'] > 0.5)
+    with span('mte.serve.request'):
+        with span('mte.serve.input'):
+            rgb = (_upload(rgb_u8, weight.device).to(torch.float32) / 255.0).to(weight.dtype)
+            lidar = _upload(lidar, weight.device, weight.dtype)
+        inv_depth = _inv_depth(model, rgb, lidar)
+        with span('mte.serve.post'):
+            out = _maps(inv_depth)
+            return encode(out['depth']), pack_edges(out['edges'] > 0.5)

@@ -46,7 +46,6 @@ from mindtheedge_tpu_torch.training.train_step import create_train_state, make_t
 from mindtheedge_tpu_torch.utils.depth import (
     DEPTH_METRIC_NAMES, compute_depth_metrics, inv2depth, post_process_inv_depth)
 from mindtheedge_tpu_torch.utils.image import flip_lr
-from mindtheedge_tpu_torch.utils.profiling import StepTimer
 from mindtheedge_tpu_torch.utils.reduce import reduce_value
 from mindtheedge_tpu_torch.utils.wandb_logger import WandbLogger
 
@@ -272,7 +271,6 @@ class Experiment:
                       f'({self.train_loader.batch_size}/process)')
         else:
             train_step = make_train_step(self.task)
-        timer = StepTimer()
         max_epochs = cfg.arch.max_epochs
         try:
             while self.state.epoch < max_epochs:
@@ -284,9 +282,7 @@ class Experiment:
                 running, n_batches = {}, 0
                 for batch in self.train_loader:
                     tbatch = batch_to_device(batch, self.device)
-                    with timer:
-                        metrics = train_step(self.state, tbatch, self.generator,
-                                             progress)
+                    metrics = train_step(self.state, tbatch, self.generator, progress)
                     n_batches += 1
                     for k, v in metrics.items():
                         running.setdefault(k, []).append(v)
@@ -308,7 +304,4 @@ class Experiment:
                 ckpt_mgr.check_and_save(cfg, self.state, {**means, **val_metrics})
         finally:
             logger.finish()
-        summary = timer.summary()
-        if summary and is_main_process():
-            print('Step timing: ' + ' '.join(f'{k}={v:.4g}' for k, v in summary.items()))
         return self.state

@@ -8,6 +8,7 @@ import torch
 
 from mindtheedge_tpu_torch.training.optimizer import build_optimizer
 from mindtheedge_tpu_torch.training.state import TrainState
+from mindtheedge_tpu_torch.utils.profiling import span
 
 
 def create_train_state(config, net, epoch=0, step=0, pose_net=None):
@@ -45,19 +46,28 @@ def make_train_step(task, grad_transform=None):
     norm and the update (``train_step.py:37-38``): the seam where the
     data-parallel step averages them over the processes
     (``parallel/mesh.make_dp_train_step``).
+
+    The step is span ``mte.train.step`` around one span for each of its
+    parts but ``grad_transform`` (``utils/profiling.py``).
     """
     def train_step(state, batch, generator, progress=0.0):
-        for net in state.networks():
-            net.zero_grad(set_to_none=False)
-        loss, metrics = task.train_loss(batch, generator, progress)
-        if loss.requires_grad:
-            loss.backward()
-        grads = [p.grad for p in state.parameters()]
-        if grad_transform is not None:
-            grad_transform(grads)
-        metrics['grad_norm'] = torch.nn.utils.get_total_norm(grads)
-        state.optimizer.step()
-        state.step += 1
+        with span('mte.train.step'):
+            with span('mte.train.zero_grad'):
+                for net in state.networks():
+                    net.zero_grad(set_to_none=False)
+            with span('mte.train.loss'):
+                loss, metrics = task.train_loss(batch, generator, progress)
+            if loss.requires_grad:
+                with span('mte.train.backward'):
+                    loss.backward()
+            grads = [p.grad for p in state.parameters()]
+            if grad_transform is not None:
+                grad_transform(grads)
+            with span('mte.train.grad_norm'):
+                metrics['grad_norm'] = torch.nn.utils.get_total_norm(grads)
+            with span('mte.train.optimizer'):
+                state.optimizer.step()
+            state.step += 1
         return metrics
 
     return train_step
