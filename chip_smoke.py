@@ -30,6 +30,13 @@ Run from the repository root, on a machine with one CUDA card and nvcc.
    [4,384,1280] on 8 inputs in turn (more than L2) by CUDA events, and by
    ``torch.profiler`` over the same kind of run; on the served map, warm in
    L2 as on the main path; at the DEE scales; and its plain version.
+   Then the pack layers' 3-D conv kernel (``csrc/conv3d_kernel.cu``) at the
+   ten [4,D,H,W] shapes of a batch-4 request, fp32 and bf16, against
+   ``F.conv3d`` on the same inputs at the card tests' tolerances
+   (``tests/test_torch_conv3d_kernel_cuda.py``), and a request's ten convs
+   timed by CUDA events, kernel and ``F.conv3d``, beside their bound.
+   Phases 4 and 10a hold the kernel to 10 launches a request, 7b and 10d
+   to 20 a training step (both passes).
 5. The DEE annotation path at full width (``EdgeEstimationLIDARModel``, the
    same network, LiDAR /200): 2 warm-up and 5 timed batches through
    ``cli.infer_edge_estimation.annotate_batch`` (forward, then at each of
@@ -48,8 +55,8 @@ Run from the repository root, on a machine with one CUDA card and nvcc.
    does not see every sync, raises on the ones it sees);
    depth finite and >= 0.5 m, and the uint16 codes within one code of the
    dense float32 uplink's.
-7. Training (``SemiSupEdgeModel``; no kernel lies on this path: the NMS
-   kernel must launch 0 times).
+7. Training (``SemiSupEdgeModel``; the NMS kernel lies off this path and
+   must launch 0 times; the 3-D conv kernel runs in both passes).
    a. One ``train_step`` at [2,64,96], channels (16,)*6, dropout 0,
       ``flip_lr_prob`` 0, on the card and on the CPU from the same weights
       and batch (``tests/test_torch_train_cuda.py``): loss rtol 1e-4,
@@ -70,8 +77,8 @@ Run from the repository root, on a machine with one CUDA card and nvcc.
       for 1 epoch at batch 2 with the shipped augmentations and validation
       on 2 frames; the checkpoint reloads bit-equal and a resume from it
       starts at epoch 1 with the optimizer's step count restored.
-8. The rest of the training family (no kernel on these paths either: the
-   NMS kernel must launch 0 times in each).
+8. The rest of the training family (the NMS kernel must launch 0 times in
+   each).
    a. One ``train_step`` card vs CPU at [2,64,96], channels (16,)*6, as 7a,
       of ``EdgeEstimationLIDARModel`` (DEE), ``SemiSupEdgeCompletionModel``
       and ``SemiSupModel`` at ``supervised_loss_weight`` 0.5 with
@@ -95,15 +102,16 @@ Run from the repository root, on a machine with one CUDA card and nvcc.
       ``PoseNet`` at batch 2 through
       ``KITTIDataset`` (4 frames with both context frames) and validation;
       the checkpoint holds the pose network and reloads bit-equal.
-9. The KITTI-DE evaluation end to end: a synthetic tree of 60 frames (about
-   half of KITTI-DE's 115-frame split: cut from 115 when phase 13 joined)
+9. The KITTI-DE evaluation end to end: a synthetic tree of 56 frames (about
+   half of KITTI-DE's 115-frame split: cut from 115 when phase 13 joined,
+   from 60 when the 3-D conv phase joined)
    at KITTI's 375x1242 written to ``build/eval_smoke/`` by ``write_split`` (RGB, uint16 GT depth, GT edges,
    LiDAR), then ``python -m mindtheedge_tpu_torch.cli.infer_edges`` with
    ``configs/infer_packnet_kitti.yaml`` (only its split, GT lists and output
    folder replaced: inference at 384x1280, batch 4, u16 wire, then the
    depth metrics, D3R and the edge AUC over 12 Canny thresholds) in a fresh
    process; the NMS kernel must launch 0 times there.  Fails unless the CLI
-   exits 0 having written 60 depth maps and colour PNGs, finite mean depth
+   exits 0 having written 56 depth maps and colour PNGs, finite mean depth
    metrics and both AUCs in [0, 1], with the g++-built native matcher.
    Prints the wall seconds and frames/s of inference, of the depth metrics
    and D3R, and of the edge AUC, the AUCs and the mean depth metrics.
@@ -117,7 +125,7 @@ Run from the repository root, on a machine with one CUDA card and nvcc.
    b. Annotation with ``configs/annotate_edges_kitti_training_set.yaml``
       plus ``precision: bfloat16`` (4 launches a batch); the edge
       agreement against fp32 at each scale.
-   c. Inference in bf16 (phase 6's path, no launch); the depth's error.
+   c. Inference in bf16 (phase 6's path, no NMS launch); the depth's error.
    d. The shipped training yaml as written (bf16) on 7b's batch, weights
       and generator seed: ms per step, peak, the parts, and the loss of
       every step beside 7b's.
@@ -129,9 +137,9 @@ Run from the repository root, on a machine with one CUDA card and nvcc.
    f. At [2,64,96], (16,)*6: one bf16 ``train_step`` card vs CPU within 2x
       the CPU's own bf16-vs-fp32 gap, and remat vs none on the card with
       dropout and flip on (``tests/test_torch_train_cuda.py``).
-   No launch on the training phases.
-11. Data parallelism across processes (``parallel/``; no kernel on these
-   paths: the NMS kernel must launch 0 times).
+   No NMS launch on the training phases.
+11. Data parallelism across processes (``parallel/``; the NMS kernel must
+   launch 0 times on these paths).
    a. NCCL at world size 1 (a ``file://`` store): one step's loss,
       gradients and running statistics against the plain step from the
       same weights, within 4x the card's noise of two plain steps (at least
@@ -178,8 +186,9 @@ Run from the repository root, on a machine with one CUDA card and nvcc.
       L4), both ranks' parameters and statistics bit-equal; then 2 timed
       steps: ms and peak a rank.
 
-12. Spatial sharding with halo exchange (``parallel/spatial.py``; no kernel
-   on these paths: the NMS kernel must launch 0 times).
+12. Spatial sharding with halo exchange (``parallel/spatial.py``; the NMS
+   kernel must launch 0 times on these paths, and the sharded 3-D convs
+   are ``F.conv3d``).
    a. NCCL at world size 1: phase 4's network and last request (SLIM,
       384x1280, batch 4, 95 %-sparse LiDAR) through ``make_spatial_infer``
       with a space of one (zero-pad exchanges, the gathered GroupNorm
@@ -219,8 +228,8 @@ Run from the repository root, on a machine with one CUDA card and nvcc.
    of 12c run first in this process, the other oracles while the ranks
    start.
 13. The depth networks and tasks beside PackNet-SAN 1A
-   (``tests/test_torch_variants_cuda.py``; no kernel on these paths: the
-   NMS kernel must launch 0 times).
+   (``tests/test_torch_variants_cuda.py``; the NMS kernel must launch 0
+   times on these paths).
    a. At [2,64,96], (16,)*6, card vs CPU from the same weights: the eval
       forward of the 4-channel PackNet-SAN 1A with LiDAR, PackNet-SAN 1B,
       ``PackNet01`` 1A and 1B (4 scales, rtol 1e-4, atol 1e-5); one
@@ -260,7 +269,9 @@ Run from the repository root, on a machine with one CUDA card and nvcc.
    boundary); ms a sweep by CUDA events, dilation steps, host checks.
 
 Prints one line per phase, each phase's wall time, then the card's name
-and power limit, a JSON line of the kernels, and as its last line
+and power limit, a JSON line of the kernels (with the 3-D conv kernel's
+launches in this process by phase: ranks and CLIs spawned in processes of
+their own count apart), and as its last line
 ``{"ok": true, "device": {...}}``.  Any failure exits nonzero; without a CUDA
 device it exits nonzero and prints no result.
 """
@@ -286,7 +297,7 @@ from mindtheedge_tpu_torch.geometry import camera_generic
 from mindtheedge_tpu_torch.models.packnet import SLIM_CHANNELS, to_train_device
 from mindtheedge_tpu_torch.models.tasks import GenericSelfSupTask, build_depth_net, build_task
 from mindtheedge_tpu_torch.ops import edge_ops, wire
-from mindtheedge_tpu_torch.ops.cuda import build, nms_kernel
+from mindtheedge_tpu_torch.ops.cuda import build, conv3d_kernel, nms_kernel
 from mindtheedge_tpu_torch.parallel import spatial
 from mindtheedge_tpu_torch.parallel.mesh import all_reduce_mean, make_dp_train_step
 from mindtheedge_tpu_torch.training.checkpoint import load_checkpoint
@@ -294,6 +305,7 @@ from mindtheedge_tpu_torch.training.experiment import Experiment
 from mindtheedge_tpu_torch.training.train_step import create_train_state, make_train_step
 from mindtheedge_tpu_torch.utils.depth import inv2depth
 from tests.test_torch_canny_cuda import SWEEP as CANNY_SWEEP, canny_card_vs_cpu
+from tests.test_torch_conv3d_kernel_cuda import REQUEST_SHAPES as CONV3D_SHAPES, check_against_conv3d
 from tests.test_torch_annotate_cuda import (
     annotate_card_vs_cpu, random_frames, task_config)
 from tests.test_torch_dp_cuda import (
@@ -311,7 +323,7 @@ from tests.test_torch_train_cuda import (
     photometric_card_vs_cpu, photometric_gap_causes, remat_config, remat_vs_plain,
     step_outcome, synthetic_batch, tensor_errs, train_step_card_vs_cpu)
 
-KERNELS = ('nms_kernel',)
+KERNELS = build.KERNELS
 B, H, W = 4, 384, 1280
 WARMUP, REQUESTS = 2, 5      # phases 4-6; cut from 8 when training joined
 DEE_SHAPES = ((1, 192, 640), (1, 96, 320), (1, 48, 160))   # annotation scales
@@ -319,6 +331,8 @@ SCALES = 4                      # annotation scales of the DEE network
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12        # H100 SXM, fp32 outside the tensor cores
 NMS_FLOPS_PER_PX = 40           # separable Sobel-5 pair (32) + bucket tests
+CONV3D_FEATURES = 4             # NUM_3D_FEAT: the d of every network's pack layers
+CONV3D_PER_PASS = 10            # the pack layers' convs in one network pass
 TRAIN_CONFIG = 'configs/train_packnet_san_kitti_with_edges.yaml'
 ANNOTATE_CONFIG = 'configs/annotate_edges_kitti_training_set.yaml'
 SERVE_BF16_REQUESTS = 10        # phase 10a
@@ -329,7 +343,7 @@ KITTI_DIR = 'build/train_smoke_kitti'
 KITTI_H, KITTI_W = 96, 320
 EVAL_CONFIG = 'configs/infer_packnet_kitti.yaml'
 EVAL_DIR = 'build/eval_smoke'
-EVAL_FRAMES = 60     # KITTI-DE's split has 115 (kitti_115_split.txt); cut when phase 13 joined
+EVAL_FRAMES = 56     # KITTI-DE's split has 115 (kitti_115_split.txt); cut when phases 13 and conv3d joined
 EVAL_H, EVAL_W = 375, 1242              # KITTI's frames and GT
 EVAL_THRESHOLDS = 12                    # Canny thresholds 20..240 of the protocol
 DP_DIR = 'build/dp_smoke'
@@ -400,6 +414,17 @@ def nms_bound_ms(numel):
     the flops at 67 TFLOP/s, whichever is larger."""
     bytes_ms = 2 * 4 * numel / HBM_BYTES_PER_S * 1e3
     flops_ms = NMS_FLOPS_PER_PX * numel / FP32_FLOPS_PER_S * 1e3
+    return max(bytes_ms, flops_ms), 'bytes' if bytes_ms >= flops_ms else 'operations'
+
+
+def conv3d_bound_ms(xs, d):
+    """(least ms the card could take for the 3-D convs of the [B,D,H,W]
+    inputs ``xs`` to ``d`` features, 'bytes' or 'operations'): each input
+    element read once and each output written once at 3.35 TB/s, or 27 FMAs
+    an output at 67 TFLOP/s, whichever is larger."""
+    n_in = sum(x.numel() for x in xs)
+    bytes_ms = (1 + d) * n_in * xs[0].element_size() / HBM_BYTES_PER_S * 1e3
+    flops_ms = 2 * 27 * d * n_in / FP32_FLOPS_PER_S * 1e3
     return max(bytes_ms, flops_ms), 'bytes' if bytes_ms >= flops_ms else 'operations'
 
 
@@ -523,6 +548,7 @@ def phase_serve(dev, dtype=torch.float32, timed=REQUESTS, label='phase 4'):
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.reset_peak_memory_stats()
     nms_kernel.launches = 0
+    convs_before = conv3d_kernel.launches
     device_ms, wall_ms = [], []
     for i, (rgb_u8, lidar) in enumerate(requests):
         if i == WARMUP:     # the warm-up peak holds cuDNN's autotuning
@@ -538,9 +564,12 @@ def phase_serve(dev, dtype=torch.float32, timed=REQUESTS, label='phase 4'):
             device_ms.append(start.elapsed_time(end))
             wall_ms.append((time.perf_counter() - t0) * 1e3)
     launches = nms_kernel.launches
+    convs = conv3d_kernel.launches - convs_before
     peak = torch.cuda.max_memory_allocated()
     check(launches == len(requests),
           f'NMS kernel launched {launches} times in {len(requests)} requests')
+    check(convs == CONV3D_PER_PASS * len(requests),
+          f'3-D conv kernel launched {convs} times in {len(requests)} requests')
 
     check(depth_host.dtype == torch.uint16 and depth_host.shape == (B, H, W),
           f'depth wire {depth_host.dtype} {tuple(depth_host.shape)}')
@@ -558,7 +587,8 @@ def phase_serve(dev, dtype=torch.float32, timed=REQUESTS, label='phase 4'):
           f'{float(np.mean(wall_ms)):.3f}), {B * 1e3 / mean_ms:.2f} img/s, '
           f'peak {peak / 2**30:.3f} GiB (warm-up with cuDNN autotuning '
           f'{tuning_peak / 2**30:.3f} GiB), nms launches {launches} '
-          f'({launches / len(requests):g} per request), depth '
+          f'({launches / len(requests):g} per request), 3-D conv launches {convs} '
+          f'({convs / len(requests):g} per request), depth '
           f'[{float(depth.min()):.3f}, {float(depth.max()):.3f}] m, '
           f'edge share {edge_share:.4f}')
 
@@ -635,6 +665,48 @@ def time_nms(prob):
              else f'{prof_us:.3f} us, gap between launches '
                   f'{prof_events_ms * 1e3 - prof_us:.3f} us'))
     return kernel_ms, plain_ms, bound_ms, bound_by
+
+
+def phase_conv3d(dev):
+    """The 3-D conv kernel at the ten [4,D,H,W] shapes of a batch-4 request,
+    fp32 and bf16, against ``F.conv3d`` on the same inputs (drawn on the
+    card: input N(0, 1), weight and bias U(-1, 1) / sqrt(27)); then a
+    request's ten convs by CUDA events, each shape in turn -> (elements
+    checked, the largest error over its tolerance, {dtype: kernel ms a
+    request}, {dtype: ``F.conv3d`` ms}, {dtype: bound ms}, {dtype: what
+    bounds it})."""
+    check(not torch.backends.cudnn.allow_tf32, 'TF32 is on in cuDNN convs')
+    gen = torch.Generator(device=dev).manual_seed(0)
+    uniform = lambda *shape: (torch.rand(*shape, device=dev, generator=gen) * 2 - 1) / 27 ** 0.5
+    checked, worst = 0, 0.0
+    kernel_ms, plain_ms, bound_ms, bound_by = {}, {}, {}, {}
+    for dtype, tag in PRECISION.items():
+        calls, worst_here = [], 0.0
+        for name, (depth, h, w) in CONV3D_SHAPES.items():
+            x, weight, bias = (t.to(dtype) for t in (
+                torch.randn(B, depth, h, w, device=dev, generator=gen),
+                uniform(CONV3D_FEATURES, 1, 3, 3, 3), uniform(CONV3D_FEATURES)))
+            err = check_against_conv3d(x, weight, bias)
+            check(err <= 1.0, f'3-D conv kernel {tag} {name} [{B},{depth},{h},{w}]: '
+                              f'{err:.3f} x its tolerance')
+            checked += CONV3D_FEATURES * x.numel()
+            worst_here = max(worst_here, err)
+            calls.append((x, weight, bias))
+            conv3d_kernel.plain(x, weight, bias)       # cuDNN's autotuning, outside the timing
+        per_request = len(calls)
+        kernel_ms[tag] = per_request * event_ms(
+            lambda i: conv3d_kernel.launch(*calls[i % per_request]), 20 * per_request)
+        plain_ms[tag] = per_request * event_ms(
+            lambda i: conv3d_kernel.plain(*calls[i % per_request]), 2 * per_request)
+        bound_ms[tag], bound_by[tag] = conv3d_bound_ms([c[0] for c in calls], CONV3D_FEATURES)
+        worst = max(worst, worst_here)
+        print(f'phase conv3d {tag}: the kernel within its tolerance of F.conv3d at the ten '
+              f'request shapes (worst {worst_here:.3f} x the tolerance); a request\'s ten convs '
+              f'{kernel_ms[tag]:.3f} ms by CUDA events, F.conv3d {plain_ms[tag]:.3f} ms '
+              f'({plain_ms[tag] / kernel_ms[tag]:.1f} x), bound {bound_ms[tag]:.3f} ms '
+              f'({bound_by[tag]}; the kernel {kernel_ms[tag] / bound_ms[tag]:.2f} x)')
+        del calls
+    return checked, worst, kernel_ms, plain_ms, bound_ms, bound_by
 
 
 def sync_ms(fn, iters):
@@ -913,11 +985,12 @@ def stage_ms(task, state, batch, gen):
 
 
 def train_full(dev, cfg, batch, label, make_step=make_train_step, warmup=TRAIN_WARMUP,
-               steps=TRAIN_STEPS):
+               steps=TRAIN_STEPS, conv3d_per_step=None):
     """``warmup`` + ``steps`` full-width training steps made by
     ``make_step`` of the task of ``cfg`` on ``batch``, from the weights and
-    generator of ``cfg.arch.seed`` -> (mean ms per step, peak bytes, the
-    loss of every step, warm-ups first)."""
+    generator of ``cfg.arch.seed``, the 3-D conv kernel held to
+    ``conv3d_per_step`` launches a step where that is given -> (mean ms per
+    step, peak bytes, the loss of every step, warm-ups first)."""
     task = build_task(cfg, device=dev)
     net = to_train_device(task.depth_net, dev)
     state = create_train_state(cfg, net, pose_net=task.pose_net)
@@ -925,6 +998,7 @@ def train_full(dev, cfg, batch, label, make_step=make_train_step, warmup=TRAIN_W
     gen = torch.Generator(dev).manual_seed(cfg.arch.seed)
     params = state.parameters()
     torch.cuda.reset_peak_memory_stats()
+    convs_before = conv3d_kernel.launches
     warm = [step(state, batch, gen)['loss'] for _ in range(warmup)]
     torch.cuda.synchronize()
     tuning_peak = torch.cuda.max_memory_allocated()
@@ -940,6 +1014,9 @@ def train_full(dev, cfg, batch, label, make_step=make_train_step, warmup=TRAIN_W
         events[i + 1].record()
     events[-1].synchronize()
     peak = torch.cuda.max_memory_allocated()
+    convs = (conv3d_kernel.launches - convs_before) / (warmup + steps)
+    check(conv3d_per_step is None or convs == conv3d_per_step,
+          f'{label}: the 3-D conv kernel launched {convs:g} times a step')
     step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(steps)]
     rows = [{k: float(v) for k, v in m.items()} for m in metrics]
     for r in rows:
@@ -959,7 +1036,8 @@ def train_full(dev, cfg, batch, label, make_step=make_train_step, warmup=TRAIN_W
             f'max {max(step_ms):.3f}), {b * 1e3 / mean_ms:.3f} img/s, peak '
             f'{peak / 2**30:.3f} GiB (warm-up with cuDNN autotuning '
             f'{tuning_peak / 2**30:.3f} GiB); {moved} of {len(before)} parameter tensors '
-            f'and {stats_moved} of {len(stats_before)} running statistics moved')
+            f'and {stats_moved} of {len(stats_before)} running statistics moved; '
+            f'3-D conv kernel launches a step {convs:g}')
     print(line)
     for i, r in enumerate(rows):
         print(f'{label} step {i}: {step_ms[i]:.3f} ms, '
@@ -974,7 +1052,8 @@ def train_full(dev, cfg, batch, label, make_step=make_train_step, warmup=TRAIN_W
 
 
 def phase_train_full(dev):
-    return train_full(dev, train_config(), full_width_batch(dev), 'phase 7b train')
+    return train_full(dev, train_config(), full_width_batch(dev), 'phase 7b train',
+                      conv3d_per_step=2 * CONV3D_PER_PASS)
 
 
 def phase_train_small_tasks(dev):
@@ -1340,7 +1419,8 @@ def phase_train_bf16(dev, losses32):
     cfg.merge_from_file(TRAIN_CONFIG)
     check(cfg.arch.precision == 'bfloat16' and not cfg.model.depth_net.remat,
           f'{TRAIN_CONFIG} is no longer bf16 without remat')
-    _, _, losses16 = train_full(dev, cfg, full_width_batch(dev), 'phase 10d bf16 train')
+    _, _, losses16 = train_full(dev, cfg, full_width_batch(dev), 'phase 10d bf16 train',
+                                conv3d_per_step=2 * CONV3D_PER_PASS)
     print('phase 10d loss by step, bf16 (as shipped) / fp32 (7b), same weights, batch '
           'and generator: ' + ', '.join(f'{a:.6f} / {b:.6f}' for a, b in zip(losses16, losses32)))
 
@@ -2128,11 +2208,13 @@ def main():
     t0 = time.perf_counter()
     print(f'torch {torch.__version__} cuda {torch.version.cuda} on '
           f'{torch.cuda.get_device_name(0)}')
-    walls = {}
+    walls, convs = {}, {}
 
     def timed(name, fn, *args):
         t = time.perf_counter()
+        conv3d_kernel.launches = 0
         out = fn(*args)
+        convs[name] = conv3d_kernel.launches
         walls[name] = time.perf_counter() - t
         return out
 
@@ -2141,6 +2223,8 @@ def main():
     timed('3', phase_small_slice, dev)
     launches4, prob, bad4, err4, *_ = timed('4', phase_serve, dev)
     kernel_ms, plain_ms, bound_ms, bound_by = timed('nms timing', time_nms, prob)
+    checked3d, worst3d, conv3d_ms, conv3d_plain_ms, conv3d_bound, conv3d_by = timed(
+        'conv3d', phase_conv3d, dev)
     launches5, px5, bad5, err5 = timed('5', phase_annotate, dev, kernel_ms)
     launches6 = timed('6', phase_infer, dev)
     nms_kernel.launches = 0
@@ -2240,7 +2324,18 @@ def main():
         'checked_px': px2 + prob.numel() + px5 + prob10.numel(),
         'tolerance': 'agree on >= 99.99% of pixels, kept values bit-equal',
         'ms': kernel_ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
-        'bound_by': bound_by, 'library_ms': None}]}))
+        'bound_by': bound_by, 'library_ms': None}, {
+        'name': 'conv3d_over_channels', 'route': 'cuda',
+        'source': 'mindtheedge_tpu_torch/csrc/conv3d_kernel.cu',
+        'replaces': None, 'in_place_of': "cuDNN's generic 3-D conv (F.conv3d)",
+        'launches': sum(convs.values()),
+        'launches_in_process_by_phase': convs,
+        'max_err_over_tolerance': worst3d, 'checked_elements': checked3d,
+        'tolerance': 'fp32 rtol 1e-5 atol 1e-6 of F.conv3d; bf16 1 ulp of the fp32 '
+                     'conv of the same operands plus the fp32 sums\' rounding',
+        'ms': conv3d_ms, 'plain_ms': conv3d_plain_ms, 'bound_ms': conv3d_bound,
+        'bound_by': conv3d_by,
+        'library_ms': conv3d_plain_ms}]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

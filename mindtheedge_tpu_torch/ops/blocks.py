@@ -19,6 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from mindtheedge_tpu_torch.ops.cuda import conv3d_kernel
 from mindtheedge_tpu_torch.ops.packing import pack2d, unpack2d
 from mindtheedge_tpu_torch.parallel import spatial
 from mindtheedge_tpu_torch.utils.profiling import span
@@ -144,7 +145,10 @@ class Conv3dOverChannels(nn.Conv3d):
     [B,D,H,W] -> [B,d*D,H,W]: output channel feat*D + depth, with the bias of
     feature f on every depth of f (``blocks.py:636-654, 706``).  Zero pad 1
     on all three axes.  The conv is the span ``mte.net.conv3d``
-    (``utils/profiling.py``).
+    (``utils/profiling.py``).  Unsharded on the card it is the kernel
+    ``csrc/conv3d_kernel.cu`` (``ops/cuda/conv3d_kernel``), which takes
+    float32 and bfloat16 and raises on any other dtype; on the CPU
+    ``F.conv3d``, its plain version; under ``space`` the sharded conv.
     """
 
     space = None
@@ -155,6 +159,8 @@ class Conv3dOverChannels(nn.Conv3d):
     def forward(self, x):
         b, depth, h, w = x.shape
         with span('mte.net.conv3d'):
+            if self.space is None and x.is_cuda:
+                return conv3d_kernel.Conv3dOverChannelsFn.apply(x, self.weight, self.bias)
             y = spatial.sharded_conv(x.unsqueeze(1), self.weight, self.bias,  # [B,d,D,H,W]
                                      self.space)
         return y.reshape(b, self.out_channels * depth, h, w)

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface.  At first use it is compiled
 for ``sm_90a`` into ``build/kernels/<name>_<hash>.so`` at the repository
 root, where the hash covers the source and the flags, so an edited source
 builds anew and an unchanged one is reused.  Only sources in the repository
-are compiled.
+are compiled.  :func:`build` of several kernels runs their nvcc processes
+at once: ``build(*KERNELS)`` builds every kernel ahead of first use.
 """
 
 import ctypes
@@ -18,6 +19,8 @@ CSRC = Path(__file__).resolve().parents[2] / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[3] / 'build' / 'kernels'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+
+KERNELS = ('conv3d_kernel', 'nms_kernel')     # every csrc/<name>.cu
 
 _loaded = {}
 

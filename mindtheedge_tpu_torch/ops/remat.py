@@ -7,8 +7,10 @@ True the backward keeps only the region's inputs and runs ``fn`` again for
 the rest; with ``'conv'`` it also keeps the output of every convolution
 and recomputes only what lies between them: norms, activations, masks,
 pooling.  (The JAX package's ``save_only_these_names('conv_out')`` keeps
-the outputs it tags: its ConvBlock and SAN convolutions; here the pack
-layers' 3-D convolutions, the 1x1 shortcuts and the heads are kept too.)
+the outputs it tags: its ConvBlock and SAN convolutions; here the 1x1
+shortcuts and the heads are kept too, and the pack layers' 3-D
+convolutions where they are ``F.conv3d``; on the card their kernel,
+``ops/cuda/conv3d_kernel``, is no ATen convolution and runs again.)
 
 What a recompute must not do a second time, and how it is kept out:
 

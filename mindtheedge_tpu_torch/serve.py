@@ -5,7 +5,8 @@ Counterpart of ``__graft_entry__.entry()`` and ``bench.py``'s
 
 * ``build`` makes the PackNet-SAN 1A model (random weights from a seed) in
   eval mode on the device, in fp32 or, as ``bench.py`` serves it, with its
-  weights cast once to bf16;
+  weights cast once to bf16; on the card it first builds the path's CUDA
+  kernels (the 3-D conv and the NMS), their nvcc processes at once;
 * ``depth_edges`` runs the forward, casts ``inv_depth`` to fp32, and runs
   ``inv2depth`` and the fused Sobel-5 + NMS kernel (f32) on
   ``clip(inv_depth / 2, 0, 1)``;
@@ -23,6 +24,7 @@ from mindtheedge_tpu_torch.models.packnet import (
     SLIM_CHANNELS, PackNetSAN, init_weights, to_device)
 from mindtheedge_tpu_torch.ops.wire import (
     encode_depth_u8, encode_depth_u16, pack_edges)
+from mindtheedge_tpu_torch.ops.cuda import build as kernels
 from mindtheedge_tpu_torch.ops.cuda.nms_kernel import non_max_suppression
 from mindtheedge_tpu_torch.utils.depth import inv2depth
 from mindtheedge_tpu_torch.utils.profiling import count, span
@@ -35,6 +37,8 @@ def build(channels=SLIM_CHANNELS, device=None, seed=0, dtype=torch.float32):
     to ``dtype``), in eval mode on ``device`` (``None`` -> CUDA, which must
     be present), through ``models.packnet.to_device``."""
     device = resolve_device(device)
+    if device.type == 'cuda':
+        kernels.build(*kernels.KERNELS)
     return to_device(init_weights(PackNetSAN(tuple(channels)), seed), device, dtype)
 
 
