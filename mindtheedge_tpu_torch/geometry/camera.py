@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from mindtheedge_tpu_torch.geometry.pose import invert_pose, transform_points
+from mindtheedge_tpu_torch.utils.profiling import count, span
 
 
 def scale_intrinsics(K, x_scale, y_scale):
@@ -90,7 +91,10 @@ def grid_sample(image, coords, padding_mode='zeros'):
 def view_synthesis(ref_image, depth, ref_K, K, pose, padding_mode='zeros'):
     """``ref_image`` warped into the original frame (``camera.py:116-124``,
     reference ``camera_utils.py:28-60``); ``pose`` [B,4,4] maps the
-    original camera to the reference one."""
-    world_points = reconstruct(depth, K, Tcw=None, frame='w')
-    ref_coords = project(world_points, ref_K, Tcw=pose, frame='w')
-    return grid_sample(ref_image, ref_coords, padding_mode=padding_mode)
+    original camera to the reference one.  A call is the span
+    ``mte.train.warp`` and adds 1 to the counter ``view_synthesis``."""
+    with span('mte.train.warp'):
+        count('view_synthesis', 1)
+        world_points = reconstruct(depth, K, Tcw=None, frame='w')
+        ref_coords = project(world_points, ref_K, Tcw=pose, frame='w')
+        return grid_sample(ref_image, ref_coords, padding_mode=padding_mode)

@@ -267,7 +267,8 @@ class PackNet01(nn.Module):
     rgb_edge=None)`` takes the task's call and ignores the LiDAR and
     ``rgb_edge``, as the JAX module's ``**kwargs`` does; it returns
     ``{'inv_depths': [4 x [B,h,w,1]]}`` in training and at eval.
-    ``generator`` feeds the dropout draws in training."""
+    ``generator`` feeds the dropout draws in training.  A call is the span
+    ``mte.net.forward``."""
 
     default_channels = FULL_CHANNELS
 
@@ -278,10 +279,11 @@ class PackNet01(nn.Module):
         self.decoder = PackNetDecoder(channels, 1, decoder_version(version))
 
     def forward(self, rgb, input_depth=None, generator=None, rgb_edge=None):
-        x = _nchw(rgb)
-        keeps = (self.encoder.dropout_keeps(x.shape[0], x.device, generator)
-                 if self.training else None)
-        return {'inv_depths': _nhwc(self.decoder(*self.encoder(x, keeps)))}
+        with span('mte.net.forward'):
+            x = _nchw(rgb)
+            keeps = (self.encoder.dropout_keeps(x.shape[0], x.device, generator)
+                     if self.training else None)
+            return {'inv_depths': _nhwc(self.decoder(*self.encoder(x, keeps)))}
 
 
 class PackNetSlim01(PackNet01):

@@ -49,6 +49,7 @@ from mindtheedge_tpu_torch.models.resnet import DepthResNet, PoseResNet, RaySurf
 from mindtheedge_tpu_torch.training.checkpoint import restore_depth_net, restore_pose_net
 from mindtheedge_tpu_torch.utils.depth import depth2inv, inv2depth
 from mindtheedge_tpu_torch.utils.image import flip_lr, match_scales, resize_bilinear
+from mindtheedge_tpu_torch.utils.profiling import span
 
 TASK_REGISTRY = {}
 
@@ -238,10 +239,12 @@ class BaseTask:
     def run_pose(self, batch):
         """The pose network on ``batch['rgb']`` and ``batch['rgb_context']``
         -> one [B,4,4] transform per context image (``tasks.py:246-253``),
-        the network in eval mode (see the module's docstring)."""
-        pose_vec = self.pose_net.eval()(batch['rgb'], batch['rgb_context'])
-        return [pose_vec2mat(pose_vec[:, i], self.rotation_mode)
-                for i in range(pose_vec.shape[1])]
+        the network in eval mode (see the module's docstring).  A call is
+        the span ``mte.net.pose``."""
+        with span('mte.net.pose'):
+            pose_vec = self.pose_net.eval()(batch['rgb'], batch['rgb_context'])
+            return [pose_vec2mat(pose_vec[:, i], self.rotation_mode)
+                    for i in range(pose_vec.shape[1])]
 
     def infer(self, batch, force_flip=False):
         return self.run_depth(batch, force_flip=force_flip)
@@ -259,11 +262,12 @@ class BaseTask:
 
     def _self_sup_loss(self, batch, output, poses):
         """The photometric loss of the target image against its context
-        images (``tasks.py:262-268``)."""
-        return multiview_photometric_loss(
-            batch['rgb_original'], batch['rgb_context_original'],
-            output['inv_depths'], batch['intrinsics'], batch['intrinsics'],
-            poses, **self.photometric_kwargs)
+        images (``tasks.py:262-268``), as the span ``mte.train.photometric``."""
+        with span('mte.train.photometric'):
+            return multiview_photometric_loss(
+                batch['rgb_original'], batch['rgb_context_original'],
+                output['inv_depths'], batch['intrinsics'], batch['intrinsics'],
+                poses, **self.photometric_kwargs)
 
     def _supervised(self, inv_depths, gt_depth):
         return supervised_loss(

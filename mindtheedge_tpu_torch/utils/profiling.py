@@ -32,13 +32,21 @@ them (``portbench/metrics/``):
   with the counter ``h2d_bytes``, the bytes copied from the host to the
   card (``h2d_mb.infer``); ``mte.serve.post``: the maps, the NMS kernel
   and the wire encodes (``post_ms.infer``);
-* ``mte.net.forward`` (``models.packnet.PackNetSAN.forward``) and, inside
-  it, ``mte.net.conv3d`` (``ops.blocks.Conv3dOverChannels``, 10 a pass:
-  ``conv3d_ms.infer``);
+* ``mte.net.forward`` (``models.packnet.PackNetSAN.forward`` and
+  ``PackNet01.forward``) and, inside it, ``mte.net.conv3d``
+  (``ops.blocks.Conv3dOverChannels``, 10 a pass: ``conv3d_ms.infer``);
 * ``mte.train.step`` (``training.train_step``): a step's root, around
   ``mte.train.zero_grad``, ``mte.train.loss`` (``loss_ms.train``, less the
-  network), ``mte.train.backward`` (``backward_ms.train``),
-  ``mte.train.grad_norm`` and ``mte.train.optimizer``.
+  networks and the photometric loss), ``mte.train.backward``
+  (``backward_ms.train``), ``mte.train.grad_norm`` and
+  ``mte.train.optimizer``;
+* inside ``mte.train.loss`` of the self-supervised tasks: ``mte.net.pose``
+  (``models.tasks.BaseTask.run_pose``: ``pose_ms.train``) and
+  ``mte.train.photometric`` (the call of
+  ``losses.photometric.multiview_photometric_loss``:
+  ``photometric_ms.train``), and inside that ``mte.train.warp``
+  (``geometry.camera.view_synthesis``, one a scale and context:
+  ``warp_ms.train``), with the counter ``view_synthesis``, 1 a call.
 """
 
 import collections

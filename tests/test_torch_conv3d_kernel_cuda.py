@@ -1,6 +1,8 @@
 """The pack layers' 3-D conv kernel (mindtheedge_tpu_torch/csrc/conv3d_kernel.cu)
 on the card: against ``F.conv3d`` with TF32 off at the ten shapes of a
-batch-4 request at 384x1280 (PackNet-SAN, SLIM widths) and at ragged ones;
+batch-4 request at 384x1280 (PackNet-SAN, SLIM widths), at those of a
+batch-3 training step of PackNet01 at FULL widths (each printing the
+wrapper's ms), and at ragged ones;
 its gradients against ``F.conv3d``'s autograd, bit for bit; the wrapper's
 checks, and the module's refusal of other dtypes on the card; and the
 launches of one serving request and one training step.
@@ -37,6 +39,10 @@ REQUEST_SHAPES = {
     'unpack5': (512, 12, 40), 'unpack4': (256, 24, 80), 'unpack3': (128, 48, 160),
     'unpack2': (64, 96, 320), 'unpack1': (32, 192, 640)}
 REQUEST_B, FEATURES = 4, 4
+# the same ten convs in a batch-3 training step of PackNet01 at FULL widths
+# (64, 64, 64, 128, 256, 512): pack1 and unpack1 are twice as deep
+FULL_SHAPES = dict(REQUEST_SHAPES, pack1=(256, 192, 640), unpack1=(64, 192, 640))
+FULL_B = 3
 # (B, D, H, W, d): depths below a chunk, odd H and W, W % 4 != 0, B = 1, d = 8
 RAGGED = [(1, 1, 1, 1, 4), (2, 2, 5, 7, 4), (1, 3, 9, 13, 8), (3, 1, 17, 30, 4),
           (1, 2, 33, 130, 8), (2, 3, 11, 255, 4), (1, 7, 65, 643, 8), (2, 5, 6, 8, 8),
@@ -102,6 +108,16 @@ def check_against_conv3d(x, weight, bias):
 def test_kernel_request_shapes_on_card(cuda_card, no_tf32, name, dtype):
     x, weight, bias = operands(REQUEST_B, *REQUEST_SHAPES[name], FEATURES, dtype, cuda_card)
     assert check_against_conv3d(x, weight, bias) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16], ids=['fp32', 'bf16'])
+@pytest.mark.parametrize('name', list(FULL_SHAPES))
+def test_kernel_packnet01_full_shapes_on_card(cuda_card, no_tf32, name, dtype):
+    x, weight, bias = operands(FULL_B, *FULL_SHAPES[name], FEATURES, dtype, cuda_card)
+    assert check_against_conv3d(x, weight, bias) <= 1.0
+    ms = event_ms(lambda: conv3d_kernel.launch(x, weight, bias), 20)
+    print(f'PackNet01 FULL {name} {[FULL_B, *FULL_SHAPES[name]]} {dtype}: {ms:.4f} ms')
 
 
 @pytest.mark.cuda
@@ -207,23 +223,26 @@ def test_training_step_launches_twenty_on_card(cuda_card):
     assert launches_and_counts(lambda: step(state, batch, gen)) == (20, 20)
 
 
+def event_ms(fn, iters=50):
+    """The ms of one call of ``fn`` on the card: a warm call, then ``iters``
+    back to back between two CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def request_times(device, iters=50):
     """Each request shape's ms on the card, float32 and bfloat16: the
     kernel (its C entry point, launched back to back), the wrapper
     (:func:`conv3d_kernel.launch`, whose checks and allocation the host
     adds), ``F.conv3d`` (the plain version and the library call), and the
     bound (the larger of its bytes at 3.35 TB/s and its FMAs at 67 TFLOP/s)."""
-    def event_ms(fn):
-        fn()
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / iters
-
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.benchmark = True
     rows = []
@@ -241,9 +260,11 @@ def request_times(device, iters=50):
                     conv3d_kernel.DTYPES[dtype], FEATURES, REQUEST_B, depth, h, w, stream)
             rows.append({'dtype': str(dtype).split('.')[-1], 'name': name,
                          'shape': [REQUEST_B, depth, h, w],
-                         'kernel_ms': event_ms(lambda: fn(*args)),
-                         'wrapper_ms': event_ms(lambda: conv3d_kernel.launch(x, weight, bias)),
-                         'conv3d_ms': event_ms(lambda: conv3d_kernel.plain(x, weight, bias)),
+                         'kernel_ms': event_ms(lambda: fn(*args), iters),
+                         'wrapper_ms': event_ms(lambda: conv3d_kernel.launch(x, weight, bias),
+                                                iters),
+                         'conv3d_ms': event_ms(lambda: conv3d_kernel.plain(x, weight, bias),
+                                               iters),
                          'bound_ms': bound_ms})
             print(json.dumps(rows[-1]), flush=True)
     return rows

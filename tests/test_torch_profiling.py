@@ -1,7 +1,8 @@
 """The port's tracing (``utils/profiling.py``) on the CPU at 64x96: spans
 and the ``h2d_bytes`` counter of a ``serve.serve`` request and of a
-training step, kept only while a profiler records or inside
-``recording()``; their tree, in the records and among the profiler's own
+training step, the self-supervised step's pose, photometric and warp
+spans and its ``view_synthesis`` counter, kept only while a profiler
+records or inside ``recording()``; their tree, in the records and among the profiler's own
 events; request ids; self times; the buffer's bound; and outputs,
 gradients and weights bit-equal with tracing on and off.
 """
@@ -186,6 +187,31 @@ def test_step_span_tree(stepped):
     assert len(convs_seen) == 20
     for e in convs_seen:
         assert ancestors(e)[:3] == ['mte.net.forward', 'mte.train.loss', 'mte.train.step']
+
+
+def test_selfsup_step_spans_and_counter():
+    """A step of the self-supervised task (PackNet01 + PoseNet, 2 contexts,
+    4 scales): one pose span and one photometric span inside the loss, the
+    8 warps inside the photometric span, the counter at 8; with tracing off
+    the same step keeps no record."""
+    from tests.test_torch_selfsup_reference import selfsup_setup
+    _, state, step, batch, _, _, _ = selfsup_setup()
+    profiling.reset()
+    step(state, batch, torch.Generator().manual_seed(0))
+    assert profiling.records() == []
+    with profiling.recording():
+        step(state, batch, torch.Generator().manual_seed(0))
+    recs = profiling.records()
+    assert len(recs) == 1 and recs[0]['name'] == 'mte.train.step'
+    assert recs[0]['counters'] == {'view_synthesis': 8}
+    spans = recs[0]['spans']
+    loss = named(spans, 'mte.train.loss')[0]
+    assert [s['name'] for s in children(spans, loss)] == [
+        'mte.net.forward', 'mte.net.pose', 'mte.train.photometric']
+    photometric = named(spans, 'mte.train.photometric')[0]
+    warps = named(spans, 'mte.train.warp')
+    assert len(warps) == 8 and all(s['parent'] == photometric['id'] for s in warps)
+    assert loss['self_host_ms'] < loss['host_ms']
 
 
 def test_request_ids_shared_within_and_distinct_across_units(model):
