@@ -37,6 +37,16 @@ Run from the repository root, on a machine with one CUDA card and nvcc.
    timed by CUDA events, kernel and ``F.conv3d``, beside their bound.
    Phases 4 and 10a hold the kernel to 10 launches a request, 7b and 10d
    to 20 a training step (both passes).
+   Then the warp's geometry kernel pair (``csrc/warp_kernel.cu``), forward
+   and backward, against autograd of the plain chain
+   (``project(reconstruct(...))``) on the same inputs at the four scales
+   of [3,384,1280] and a ragged [2,37,101], at the card tests' tolerances
+   (``tests/test_torch_warp_kernel_cuda.py``); each pass at [3,384,1280]
+   timed by CUDA events beside its bytes bound, the Function's forward +
+   backward as the host drives it, and the plain chain.  Every training
+   phase holds the warp kernel to its launches a step: 8 (2 contexts x 4
+   scales) in 8c and 13c, 0 in the others; serving, annotation and
+   inference (4-6, 10a-c) launch it 0 times.
 5. The DEE annotation path at full width (``EdgeEstimationLIDARModel``, the
    same network, LiDAR /200): 2 warm-up and 5 timed batches through
    ``cli.infer_edge_estimation.annotate_batch`` (forward, then at each of
@@ -269,8 +279,8 @@ Run from the repository root, on a machine with one CUDA card and nvcc.
    boundary); ms a sweep by CUDA events, dilation steps, host checks.
 
 Prints one line per phase, each phase's wall time, then the card's name
-and power limit, a JSON line of the kernels (with the 3-D conv kernel's
-launches in this process by phase: ranks and CLIs spawned in processes of
+and power limit, a JSON line of the kernels (with the 3-D conv and warp
+kernels' launches in this process by phase: ranks and CLIs spawned in processes of
 their own count apart), and as its last line
 ``{"ok": true, "device": {...}}``.  Any failure exits nonzero; without a CUDA
 device it exits nonzero and prints no result.
@@ -297,7 +307,7 @@ from mindtheedge_tpu_torch.geometry import camera_generic
 from mindtheedge_tpu_torch.models.packnet import SLIM_CHANNELS, to_train_device
 from mindtheedge_tpu_torch.models.tasks import GenericSelfSupTask, build_depth_net, build_task
 from mindtheedge_tpu_torch.ops import edge_ops, wire
-from mindtheedge_tpu_torch.ops.cuda import build, conv3d_kernel, nms_kernel
+from mindtheedge_tpu_torch.ops.cuda import build, conv3d_kernel, nms_kernel, warp_kernel
 from mindtheedge_tpu_torch.parallel import spatial
 from mindtheedge_tpu_torch.parallel.mesh import all_reduce_mean, make_dp_train_step
 from mindtheedge_tpu_torch.training.checkpoint import load_checkpoint
@@ -313,6 +323,10 @@ from tests.test_torch_dp_cuda import (
 from tests.test_torch_spatial_cuda import (
     card_pair_job, cli_job, forward_gap, gloo_dtype_job, step_gaps)
 from tests.test_torch_train_cuda import write_kitti_tree
+from tests.test_torch_warp_kernel_cuda import (
+    ELEM_RTOL, RAGGED as WARP_RAGGED, SUM_RTOL, kernel_vs_plain, plain as plain_coords,
+    warp_inputs)
+from mindtheedge_tpu_torch.geometry.pose import pose_vec2mat
 from tests.test_torch_variants_cuda import (
     EVAL_CASES, GENERIC_STEP_BAND, PACKNET01_SELFSUP, camera_generic_card_vs_fp64,
     eval_card_vs_cpu, generic_step_card_vs_cpu, generic_step_job, group_norm_fp64_gaps,
@@ -333,6 +347,8 @@ FP32_FLOPS_PER_S = 67e12        # H100 SXM, fp32 outside the tensor cores
 NMS_FLOPS_PER_PX = 40           # separable Sobel-5 pair (32) + bucket tests
 CONV3D_FEATURES = 4             # NUM_3D_FEAT: the d of every network's pack layers
 CONV3D_PER_PASS = 10            # the pack layers' convs in one network pass
+WARPS_PER_STEP = 8              # the photometric loss's warps: 2 contexts x 4 scales
+WARP_SHAPE = (3, 384, 1280)     # phase warp: the self-supervised cell's frames
 TRAIN_CONFIG = 'configs/train_packnet_san_kitti_with_edges.yaml'
 ANNOTATE_CONFIG = 'configs/annotate_edges_kitti_training_set.yaml'
 SERVE_BF16_REQUESTS = 10        # phase 10a
@@ -709,6 +725,64 @@ def phase_conv3d(dev):
     return checked, worst, kernel_ms, plain_ms, bound_ms, bound_by
 
 
+def warp_bound_ms(pixels):
+    """{pass: least ms the card could take for the warp's geometry over
+    ``pixels`` pixels}: the forward reads 4 B a pixel and writes 8, the
+    backward reads 12 and writes 4, at 3.35 TB/s."""
+    return {'forward': 12 * pixels / HBM_BYTES_PER_S * 1e3,
+            'backward': 16 * pixels / HBM_BYTES_PER_S * 1e3}
+
+
+def phase_warp(dev):
+    """The warp's geometry kernel pair (``warp_kernel.WarpCoordsFn``, forward
+    and backward) against autograd of the plain chain,
+    ``project(reconstruct(...))``, on the same inputs and against its fp64,
+    at the four scales of [3,384,1280] and a ragged [2,37,101], at the card
+    test's tolerances (``tests/test_torch_warp_kernel_cuda``: each error at
+    most twice the plain fp32's, or within 1e-5); then, at [3,384,1280],
+    the forward and the backward by CUDA events, the Function's forward +
+    backward as the host drives it, and the plain chain's -> (shapes
+    checked, the largest error over its tolerance, {pass: kernel ms},
+    {pass: plain ms}, {pass: bound ms})."""
+    b, h, w = WARP_SHAPE
+    shapes = [(b, h >> s, w >> s) for s in range(4)] + [WARP_RAGGED]
+    worst = 0.0
+    for shape in shapes:
+        err = kernel_vs_plain(shape, dev)
+        over = max(err[name] / max(2 * err[f'plain_{name}'], tol) for name, tol in
+                   (('coords', ELEM_RTOL), ('depth_grad', ELEM_RTOL), ('pose_grad', SUM_RTOL)))
+        check(over <= 1.0, f'warp kernel at {list(shape)}: {over:.3f} x its tolerance ({err})')
+        worst = max(worst, over)
+    depth, K, ref_K, vec, grad = warp_inputs(WARP_SHAPE, dev)
+    pose = pose_vec2mat(vec)
+
+    def fwd_bwd(fn):
+        d, p = depth.detach().requires_grad_(), pose.detach().requires_grad_()
+        torch.autograd.backward(fn(d, K, ref_K, p), grad)
+
+    fwd_bwd(warp_kernel.WarpCoordsFn.apply)     # a warm call, as every timing here has
+    kernel_ms = {
+        'forward': event_ms(lambda i: warp_kernel.launch(depth, K, ref_K, pose), 200),
+        'backward': event_ms(
+            lambda i: warp_kernel.launch_backward(grad, depth, K, ref_K, pose), 200),
+        'forward_backward_host_driven': sync_ms(
+            lambda i: fwd_bwd(warp_kernel.WarpCoordsFn.apply), 200)}
+    fwd_bwd(plain_coords)
+    plain_ms = {'forward': event_ms(lambda i: plain_coords(depth, K, ref_K, pose), 20),
+                'forward_backward': event_ms(lambda i: fwd_bwd(plain_coords), 5)}
+    bound_ms = warp_bound_ms(depth.numel())
+    print(f'phase warp: forward and backward within the card test\'s tolerances of the '
+          f'plain chain at {shapes} (worst {worst:.3f} x the tolerance); at '
+          f'{list(WARP_SHAPE)} by CUDA events: forward {kernel_ms["forward"] * 1e3:.2f} us, '
+          f'backward {kernel_ms["backward"] * 1e3:.2f} us (bound '
+          f'{bound_ms["forward"] * 1e3:.2f} / {bound_ms["backward"] * 1e3:.2f} us, bytes), '
+          f'the Function\'s forward + backward as the host drives it '
+          f'{kernel_ms["forward_backward_host_driven"] * 1e3:.2f} us; the plain chain '
+          f'forward {plain_ms["forward"]:.3f} ms, forward + backward '
+          f'{plain_ms["forward_backward"]:.3f} ms')
+    return shapes, worst, kernel_ms, plain_ms, bound_ms
+
+
 def sync_ms(fn, iters):
     """Mean ms of ``fn(i)`` over ``iters`` calls by CUDA events, for work
     that waits for the card itself (so ``event_ms``'s enqueue check cannot
@@ -985,12 +1059,13 @@ def stage_ms(task, state, batch, gen):
 
 
 def train_full(dev, cfg, batch, label, make_step=make_train_step, warmup=TRAIN_WARMUP,
-               steps=TRAIN_STEPS, conv3d_per_step=None):
+               steps=TRAIN_STEPS, conv3d_per_step=None, warps_per_step=0):
     """``warmup`` + ``steps`` full-width training steps made by
     ``make_step`` of the task of ``cfg`` on ``batch``, from the weights and
     generator of ``cfg.arch.seed``, the 3-D conv kernel held to
-    ``conv3d_per_step`` launches a step where that is given -> (mean ms per
-    step, peak bytes, the loss of every step, warm-ups first)."""
+    ``conv3d_per_step`` launches a step where that is given and the warp
+    kernel to ``warps_per_step`` -> (mean ms per step, peak bytes, the loss
+    of every step, warm-ups first)."""
     task = build_task(cfg, device=dev)
     net = to_train_device(task.depth_net, dev)
     state = create_train_state(cfg, net, pose_net=task.pose_net)
@@ -998,7 +1073,7 @@ def train_full(dev, cfg, batch, label, make_step=make_train_step, warmup=TRAIN_W
     gen = torch.Generator(dev).manual_seed(cfg.arch.seed)
     params = state.parameters()
     torch.cuda.reset_peak_memory_stats()
-    convs_before = conv3d_kernel.launches
+    convs_before, warps_before = conv3d_kernel.launches, warp_kernel.launches
     warm = [step(state, batch, gen)['loss'] for _ in range(warmup)]
     torch.cuda.synchronize()
     tuning_peak = torch.cuda.max_memory_allocated()
@@ -1017,6 +1092,8 @@ def train_full(dev, cfg, batch, label, make_step=make_train_step, warmup=TRAIN_W
     convs = (conv3d_kernel.launches - convs_before) / (warmup + steps)
     check(conv3d_per_step is None or convs == conv3d_per_step,
           f'{label}: the 3-D conv kernel launched {convs:g} times a step')
+    warps = (warp_kernel.launches - warps_before) / (warmup + steps)
+    check(warps == warps_per_step, f'{label}: the warp kernel launched {warps:g} times a step')
     step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(steps)]
     rows = [{k: float(v) for k, v in m.items()} for m in metrics]
     for r in rows:
@@ -1037,7 +1114,7 @@ def train_full(dev, cfg, batch, label, make_step=make_train_step, warmup=TRAIN_W
             f'{peak / 2**30:.3f} GiB (warm-up with cuDNN autotuning '
             f'{tuning_peak / 2**30:.3f} GiB); {moved} of {len(before)} parameter tensors '
             f'and {stats_moved} of {len(stats_before)} running statistics moved; '
-            f'3-D conv kernel launches a step {convs:g}')
+            f'3-D conv kernel launches a step {convs:g}, warp kernel launches a step {warps:g}')
     print(line)
     for i, r in enumerate(rows):
         print(f'{label} step {i}: {step_ms[i]:.3f} ms, '
@@ -1121,7 +1198,7 @@ def generic_batch(dev):
 
 def phase_train_selfsup(dev):
     return train_full(dev, selfsup_config(), selfsup_full_batch(dev),
-                      'phase 8c self-supervised train')
+                      'phase 8c self-supervised train', warps_per_step=WARPS_PER_STEP)
 
 
 def phase_train_kitti_cli(dev):
@@ -2138,7 +2215,7 @@ def phase_packnet01_train(dev):
     cfg.model.depth_net.channels = ()
     return train_full(dev, cfg, selfsup_full_batch(dev),
                       'phase 13c SelfSupModel + PoseNet on PackNet01 FULL_CHANNELS train',
-                      warmup=2, steps=3)
+                      warmup=2, steps=3, warps_per_step=WARPS_PER_STEP)
 
 
 def phase_generic_train(dev):
@@ -2208,13 +2285,14 @@ def main():
     t0 = time.perf_counter()
     print(f'torch {torch.__version__} cuda {torch.version.cuda} on '
           f'{torch.cuda.get_device_name(0)}')
-    walls, convs = {}, {}
+    walls, convs, warps = {}, {}, {}
 
     def timed(name, fn, *args):
         t = time.perf_counter()
-        conv3d_kernel.launches = 0
+        conv3d_kernel.launches = warp_kernel.launches = 0
         out = fn(*args)
         convs[name] = conv3d_kernel.launches
+        warps[name] = warp_kernel.launches
         walls[name] = time.perf_counter() - t
         return out
 
@@ -2225,6 +2303,7 @@ def main():
     kernel_ms, plain_ms, bound_ms, bound_by = timed('nms timing', time_nms, prob)
     checked3d, worst3d, conv3d_ms, conv3d_plain_ms, conv3d_bound, conv3d_by = timed(
         'conv3d', phase_conv3d, dev)
+    warp_shapes, warp_worst, warp_ms, warp_plain_ms, warp_bound = timed('warp', phase_warp, dev)
     launches5, px5, bad5, err5 = timed('5', phase_annotate, dev, kernel_ms)
     launches6 = timed('6', phase_infer, dev)
     nms_kernel.launches = 0
@@ -2284,6 +2363,8 @@ def main():
     timed('14', phase_canny, dev)
     launches14 = nms_kernel.launches
     check(launches14 == 0, f'NMS kernel launched {launches14} times in phase 14')
+    for name in ('4', '5', '6', '10a', '10b', '10c'):
+        check(warps[name] == 0, f'warp kernel launched {warps[name]} times in phase {name}')
     print('phase wall times (s): ' + ', '.join(f'{k} {v:.1f}' for k, v in walls.items()))
     print(f'chip_smoke wall time {time.perf_counter() - t0:.1f} s')
     card = card_line()
@@ -2335,7 +2416,21 @@ def main():
                      'conv of the same operands plus the fp32 sums\' rounding',
         'ms': conv3d_ms, 'plain_ms': conv3d_plain_ms, 'bound_ms': conv3d_bound,
         'bound_by': conv3d_by,
-        'library_ms': conv3d_plain_ms}]}))
+        'library_ms': conv3d_plain_ms}, {
+        'name': 'warp_geometry', 'route': 'cuda',
+        'source': 'mindtheedge_tpu_torch/csrc/warp_kernel.cu',
+        'replaces': None,
+        'in_place_of': 'camera.reconstruct + camera.project (ATen ops and cuBLAS 3x3 bmm)',
+        'launches': sum(warps.values()),
+        'launches_in_process_by_phase': warps,
+        'launches_a_step': {'train_selfsup': WARPS_PER_STEP, 'train_packnet01': WARPS_PER_STEP,
+                            'train_san': 0, 'train_dee': 0, 'train_bf16': 0,
+                            'train_remat': 0, 'train_generic': 0},
+        'max_err_over_tolerance': warp_worst, 'checked_shapes': warp_shapes,
+        'tolerance': 'coords and depth gradient per element, pose gradient per frame: '
+                     'at most 2 x the plain fp32 chain\'s error against its fp64, or 1e-5',
+        'ms': warp_ms, 'plain_ms': warp_plain_ms, 'bound_ms': warp_bound,
+        'bound_by': 'bytes', 'library_ms': None}]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

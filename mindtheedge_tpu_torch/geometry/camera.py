@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from mindtheedge_tpu_torch.geometry.pose import invert_pose, transform_points
+from mindtheedge_tpu_torch.ops.cuda import warp_kernel
 from mindtheedge_tpu_torch.utils.profiling import count, span
 
 
@@ -91,10 +92,16 @@ def grid_sample(image, coords, padding_mode='zeros'):
 def view_synthesis(ref_image, depth, ref_K, K, pose, padding_mode='zeros'):
     """``ref_image`` warped into the original frame (``camera.py:116-124``,
     reference ``camera_utils.py:28-60``); ``pose`` [B,4,4] maps the
-    original camera to the reference one.  A call is the span
+    original camera to the reference one.  The sampling coordinates are
+    ``project(reconstruct(...))`` on the CPU and ``csrc/warp_kernel.cu``
+    (``ops/cuda/warp_kernel.WarpCoordsFn``) on any other device, which
+    raises on what the kernel does not take.  A call is the span
     ``mte.train.warp`` and adds 1 to the counter ``view_synthesis``."""
     with span('mte.train.warp'):
         count('view_synthesis', 1)
-        world_points = reconstruct(depth, K, Tcw=None, frame='w')
-        ref_coords = project(world_points, ref_K, Tcw=pose, frame='w')
+        if depth.device.type == 'cpu':
+            world_points = reconstruct(depth, K, Tcw=None, frame='w')
+            ref_coords = project(world_points, ref_K, Tcw=pose, frame='w')
+        else:
+            ref_coords = warp_kernel.WarpCoordsFn.apply(depth, K, ref_K, pose)
         return grid_sample(ref_image, ref_coords, padding_mode=padding_mode)

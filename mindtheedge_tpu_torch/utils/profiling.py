@@ -46,7 +46,9 @@ them (``portbench/metrics/``):
   ``losses.photometric.multiview_photometric_loss``:
   ``photometric_ms.train``), and inside that ``mte.train.warp``
   (``geometry.camera.view_synthesis``, one a scale and context:
-  ``warp_ms.train``), with the counter ``view_synthesis``, 1 a call.
+  ``warp_ms.train``), with the counter ``view_synthesis``, 1 a call, and
+  on the card the counter ``warp_kernel``, 1 a launch of the warp's
+  geometry kernel (``ops.cuda.warp_kernel.launch``; no metric reads it).
 """
 
 import collections
