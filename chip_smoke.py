@@ -35,8 +35,21 @@ Run from the repository root, on a machine with one CUDA card and nvcc.
    ``F.conv3d`` on the same inputs at the card tests' tolerances
    (``tests/test_torch_conv3d_kernel_cuda.py``), and a request's ten convs
    timed by CUDA events, kernel and ``F.conv3d``, beside their bound.
+   The same bf16 convs again on channels-last inputs (the NHWC layout of
+   the bf16 networks, output channels-last), checked and timed alike, each
+   shape timed alone in both bf16 layouts.
    Phases 4 and 10a hold the kernel to 10 launches a request, 7b and 10d
    to 20 a training step (both passes).
+   Then the GroupNorm + ELU kernel pair (``csrc/gn_elu_kernel.cu``,
+   ``GroupNormEluFn``) at every GroupNorm shape of PackNet01 FULL and SLIM
+   at [3,384,1280] and at [2,37,101] x 6 widths against fp64 and the plain
+   version at the card test's tolerances
+   (``tests/test_torch_gn_elu_kernel_cuda.py``); the 47 of a FULL pass
+   timed by CUDA events, forward and backward, beside their bound (6 and
+   14 bytes an element) and ATen's plain version on the same input.  Every
+   serving, annotation, inference and training path holds the pair to 47
+   launches a network pass (4.7 a 3-D conv launch) in bf16 and 0 in fp32;
+   phases 4, 7b, 8c, 13c and the sharded bf16 jobs of 12b-c to 0.
    Then the warp's geometry kernel pair (``csrc/warp_kernel.cu``), forward
    and backward, against autograd of the plain chain
    (``project(reconstruct(...))``) on the same inputs at the four scales
@@ -279,8 +292,8 @@ Run from the repository root, on a machine with one CUDA card and nvcc.
    boundary); ms a sweep by CUDA events, dilation steps, host checks.
 
 Prints one line per phase, each phase's wall time, then the card's name
-and power limit, a JSON line of the kernels (with the 3-D conv and warp
-kernels' launches in this process by phase: ranks and CLIs spawned in processes of
+and power limit, a JSON line of the kernels (with the 3-D conv, warp and
+GroupNorm + ELU kernels' launches in this process by phase: ranks and CLIs spawned in processes of
 their own count apart), and as its last line
 ``{"ok": true, "device": {...}}``.  Any failure exits nonzero; without a CUDA
 device it exits nonzero and prints no result.
@@ -304,10 +317,10 @@ from mindtheedge_tpu_torch.cli import infer_edges, train_edges
 from mindtheedge_tpu_torch.cli.infer_edges import infer_batch
 from mindtheedge_tpu_torch.config import get_cfg_defaults, parse_train_file
 from mindtheedge_tpu_torch.geometry import camera_generic
-from mindtheedge_tpu_torch.models.packnet import SLIM_CHANNELS, to_train_device
+from mindtheedge_tpu_torch.models.packnet import FULL_CHANNELS, SLIM_CHANNELS, to_train_device
 from mindtheedge_tpu_torch.models.tasks import GenericSelfSupTask, build_depth_net, build_task
 from mindtheedge_tpu_torch.ops import edge_ops, wire
-from mindtheedge_tpu_torch.ops.cuda import build, conv3d_kernel, nms_kernel, warp_kernel
+from mindtheedge_tpu_torch.ops.cuda import build, conv3d_kernel, gn_elu_kernel, nms_kernel, warp_kernel
 from mindtheedge_tpu_torch.parallel import spatial
 from mindtheedge_tpu_torch.parallel.mesh import all_reduce_mean, make_dp_train_step
 from mindtheedge_tpu_torch.training.checkpoint import load_checkpoint
@@ -316,6 +329,9 @@ from mindtheedge_tpu_torch.training.train_step import create_train_state, make_t
 from mindtheedge_tpu_torch.utils.depth import inv2depth
 from tests.test_torch_canny_cuda import SWEEP as CANNY_SWEEP, canny_card_vs_cpu
 from tests.test_torch_conv3d_kernel_cuda import REQUEST_SHAPES as CONV3D_SHAPES, check_against_conv3d
+from tests.test_torch_gn_elu_kernel_cuda import (
+    NETWORK_SHAPES as GN_SHAPES, ODD_SHAPES as GN_ODD_SHAPES, check_against_fp64 as gn_vs_fp64,
+    group_norm_shapes, operands as gn_operands)
 from tests.test_torch_annotate_cuda import (
     annotate_card_vs_cpu, random_frames, task_config)
 from tests.test_torch_dp_cuda import (
@@ -347,6 +363,9 @@ FP32_FLOPS_PER_S = 67e12        # H100 SXM, fp32 outside the tensor cores
 NMS_FLOPS_PER_PX = 40           # separable Sobel-5 pair (32) + bucket tests
 CONV3D_FEATURES = 4             # NUM_3D_FEAT: the d of every network's pack layers
 CONV3D_PER_PASS = 10            # the pack layers' convs in one network pass
+GN_PER_PASS = 47                # the GroupNorm + ELU blocks of one network pass
+GN_BYTES = {'forward': 6, 'backward': 14}   # the pair's least bytes an element
+GN_SHAPE = (3, 384, 1280)       # phase gn_elu: the self-supervised cell's frames
 WARPS_PER_STEP = 8              # the photometric loss's warps: 2 contexts x 4 scales
 WARP_SHAPE = (3, 384, 1280)     # phase warp: the self-supervised cell's frames
 TRAIN_CONFIG = 'configs/train_packnet_san_kitti_with_edges.yaml'
@@ -442,6 +461,15 @@ def conv3d_bound_ms(xs, d):
     bytes_ms = (1 + d) * n_in * xs[0].element_size() / HBM_BYTES_PER_S * 1e3
     flops_ms = 2 * 27 * d * n_in / FP32_FLOPS_PER_S * 1e3
     return max(bytes_ms, flops_ms), 'bytes' if bytes_ms >= flops_ms else 'operations'
+
+
+def check_gn_launches(label, gns, convs, dtype):
+    """Hold the GroupNorm + ELU kernel's ``gns`` launches on a path to
+    ``GN_PER_PASS`` a PackNet pass (``CONV3D_PER_PASS`` 3-D conv launches,
+    ``convs`` in all) in bf16 and to none in fp32."""
+    want = GN_PER_PASS * convs / CONV3D_PER_PASS if dtype == torch.bfloat16 else 0
+    check(gns == want, f'{label}: the GroupNorm + ELU kernel launched {gns:g} times beside '
+                       f'{convs:g} 3-D conv launches in {PRECISION[dtype]} (want {want:g})')
 
 
 def compare_nms(x):
@@ -564,7 +592,7 @@ def phase_serve(dev, dtype=torch.float32, timed=REQUESTS, label='phase 4'):
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.reset_peak_memory_stats()
     nms_kernel.launches = 0
-    convs_before = conv3d_kernel.launches
+    convs_before, gns_before = conv3d_kernel.launches, gn_elu_kernel.launches
     device_ms, wall_ms = [], []
     for i, (rgb_u8, lidar) in enumerate(requests):
         if i == WARMUP:     # the warm-up peak holds cuDNN's autotuning
@@ -581,7 +609,9 @@ def phase_serve(dev, dtype=torch.float32, timed=REQUESTS, label='phase 4'):
             wall_ms.append((time.perf_counter() - t0) * 1e3)
     launches = nms_kernel.launches
     convs = conv3d_kernel.launches - convs_before
+    gns = gn_elu_kernel.launches - gns_before
     peak = torch.cuda.max_memory_allocated()
+    check_gn_launches(label, gns, convs, dtype)
     check(launches == len(requests),
           f'NMS kernel launched {launches} times in {len(requests)} requests')
     check(convs == CONV3D_PER_PASS * len(requests),
@@ -604,7 +634,8 @@ def phase_serve(dev, dtype=torch.float32, timed=REQUESTS, label='phase 4'):
           f'peak {peak / 2**30:.3f} GiB (warm-up with cuDNN autotuning '
           f'{tuning_peak / 2**30:.3f} GiB), nms launches {launches} '
           f'({launches / len(requests):g} per request), 3-D conv launches {convs} '
-          f'({convs / len(requests):g} per request), depth '
+          f'({convs / len(requests):g} per request), GroupNorm + ELU kernel launches {gns} '
+          f'({gns / len(requests):g} per request), depth '
           f'[{float(depth.min()):.3f}, {float(depth.max()):.3f}] m, '
           f'edge share {edge_share:.4f}')
 
@@ -685,23 +716,27 @@ def time_nms(prob):
 
 def phase_conv3d(dev):
     """The 3-D conv kernel at the ten [4,D,H,W] shapes of a batch-4 request,
-    fp32 and bf16, against ``F.conv3d`` on the same inputs (drawn on the
-    card: input N(0, 1), weight and bias U(-1, 1) / sqrt(27)); then a
-    request's ten convs by CUDA events, each shape in turn -> (elements
-    checked, the largest error over its tolerance, {dtype: kernel ms a
-    request}, {dtype: ``F.conv3d`` ms}, {dtype: bound ms}, {dtype: what
-    bounds it})."""
+    fp32, bf16 and bf16 channels-last ('bf16_nhwc', the bf16 networks'
+    layout), against ``F.conv3d`` on the same inputs (drawn on the card:
+    input N(0, 1), weight and bias U(-1, 1) / sqrt(27)); then a request's
+    ten convs by CUDA events, each shape in turn, and each bf16 shape alone
+    in both layouts -> (elements checked, the largest error over its
+    tolerance, {tag: kernel ms a request}, {tag: ``F.conv3d`` ms}, {tag:
+    bound ms}, {tag: what bounds it}, {tag: {shape: kernel ms}})."""
     check(not torch.backends.cudnn.allow_tf32, 'TF32 is on in cuDNN convs')
     gen = torch.Generator(device=dev).manual_seed(0)
     uniform = lambda *shape: (torch.rand(*shape, device=dev, generator=gen) * 2 - 1) / 27 ** 0.5
     checked, worst = 0, 0.0
-    kernel_ms, plain_ms, bound_ms, bound_by = {}, {}, {}, {}
-    for dtype, tag in PRECISION.items():
+    kernel_ms, plain_ms, bound_ms, bound_by, shape_ms = {}, {}, {}, {}, {}
+    for dtype, tag, layout in ((torch.float32, 'fp32', torch.contiguous_format),
+                               (torch.bfloat16, 'bf16', torch.contiguous_format),
+                               (torch.bfloat16, 'bf16_nhwc', torch.channels_last)):
         calls, worst_here = [], 0.0
         for name, (depth, h, w) in CONV3D_SHAPES.items():
             x, weight, bias = (t.to(dtype) for t in (
                 torch.randn(B, depth, h, w, device=dev, generator=gen),
                 uniform(CONV3D_FEATURES, 1, 3, 3, 3), uniform(CONV3D_FEATURES)))
+            x = x.contiguous(memory_format=layout)
             err = check_against_conv3d(x, weight, bias)
             check(err <= 1.0, f'3-D conv kernel {tag} {name} [{B},{depth},{h},{w}]: '
                               f'{err:.3f} x its tolerance')
@@ -715,6 +750,9 @@ def phase_conv3d(dev):
         plain_ms[tag] = per_request * event_ms(
             lambda i: conv3d_kernel.plain(*calls[i % per_request]), 2 * per_request)
         bound_ms[tag], bound_by[tag] = conv3d_bound_ms([c[0] for c in calls], CONV3D_FEATURES)
+        if dtype == torch.bfloat16:
+            shape_ms[tag] = {name: event_ms(lambda i: conv3d_kernel.launch(*c), 20)
+                             for name, c in zip(CONV3D_SHAPES, calls)}
         worst = max(worst, worst_here)
         print(f'phase conv3d {tag}: the kernel within its tolerance of F.conv3d at the ten '
               f'request shapes (worst {worst_here:.3f} x the tolerance); a request\'s ten convs '
@@ -722,7 +760,64 @@ def phase_conv3d(dev):
               f'({plain_ms[tag] / kernel_ms[tag]:.1f} x), bound {bound_ms[tag]:.3f} ms '
               f'({bound_by[tag]}; the kernel {kernel_ms[tag] / bound_ms[tag]:.2f} x)')
         del calls
-    return checked, worst, kernel_ms, plain_ms, bound_ms, bound_by
+    print('phase conv3d each bf16 request shape alone, kernel ms by CUDA events (NCHW / NHWC): '
+          + ', '.join(f'{n} {shape_ms["bf16"][n]:.4f} / {shape_ms["bf16_nhwc"][n]:.4f}'
+                      for n in CONV3D_SHAPES))
+    return checked, worst, kernel_ms, plain_ms, bound_ms, bound_by, shape_ms
+
+
+def phase_gn_elu(dev):
+    """The GroupNorm + ELU kernel pair (``gn_elu_kernel.GroupNormEluFn``,
+    forward and backward) against fp64 and the plain version
+    ``F.elu(F.group_norm(x))`` at every GroupNorm shape of PackNet01 FULL
+    and SLIM at [3,384,1280] and at [2,37,101] x 6 widths, at the card
+    test's tolerances (``tests/test_torch_gn_elu_kernel_cuda``); then the 47
+    GroupNorms of a FULL pass at [3,384,1280], each shape by CUDA events:
+    the forward, the backward, the Function's forward + backward, and the
+    plain version's (ATen on the same channels-last input) -> (shapes
+    checked, the largest error over its tolerance, {pass: kernel ms a
+    network pass}, {pass: plain ms}, {pass: bound ms})."""
+    shapes = GN_SHAPES + GN_ODD_SHAPES
+    worst = 0.0
+    for shape in shapes:
+        errs = gn_vs_fp64(*gn_operands(*shape, dev))
+        over = max(errs[k] for k in ('y', 'dx', 'dweight', 'dbias'))
+        gap = max(errs[k] for k in ('gap_y', 'gap_dx', 'gap_dweight', 'gap_dbias'))
+        check(over <= 1.0 and errs['y'] <= errs['plain_y'] and gap < 0.05,
+              f'GroupNorm + ELU kernel pair at {list(shape)}: {errs}')
+        worst = max(worst, over)
+    per_pass = {}
+    for c, h, w in group_norm_shapes(FULL_CHANNELS, *GN_SHAPE[1:]):
+        per_pass[(GN_SHAPE[0], c, h, w)] = per_pass.get((GN_SHAPE[0], c, h, w), 0) + 1
+    check(sum(per_pass.values()) == GN_PER_PASS, f'{sum(per_pass.values())} GroupNorms a pass')
+    kernel_ms = dict.fromkeys(('forward', 'backward', 'forward_backward'), 0.0)
+    plain_ms = dict.fromkeys(('forward', 'forward_backward'), 0.0)
+    elements = 0
+    for shape, n in per_pass.items():
+        x, weight, bias, dy = gn_operands(*shape, dev)
+        y, mean, rstd = gn_elu_kernel.launch(x, weight, bias)
+        xr = x.detach().clone().requires_grad_()
+        both = lambda i: gn_elu_kernel.GroupNormEluFn.apply(xr, weight, bias, 1e-5).backward(dy)
+        plain_both = lambda i: gn_elu_kernel.plain(xr, weight, bias).backward(dy)
+        both(0)
+        plain_both(0)
+        kernel_ms['forward'] += n * event_ms(lambda i: gn_elu_kernel.launch(x, weight, bias), 20)
+        kernel_ms['backward'] += n * event_ms(
+            lambda i: gn_elu_kernel.launch_backward(dy, x, y, mean, rstd, weight), 20)
+        kernel_ms['forward_backward'] += n * event_ms(both, 20)
+        plain_ms['forward'] += n * event_ms(lambda i: gn_elu_kernel.plain(x, weight, bias), 5)
+        plain_ms['forward_backward'] += n * event_ms(plain_both, 5)
+        elements += n * x.numel()
+    bound_ms = {k: GN_BYTES[k] * elements / HBM_BYTES_PER_S * 1e3 for k in GN_BYTES}
+    print(f'phase gn_elu: forward and backward within the card test\'s tolerances of fp64 and '
+          f'closer than ATen at {len(shapes)} shapes (worst {worst:.3f} x the tolerance); the '
+          f'{GN_PER_PASS} GroupNorms of a PackNet01 FULL pass at {list(GN_SHAPE)} by CUDA '
+          f'events: forward {kernel_ms["forward"]:.3f} ms, backward {kernel_ms["backward"]:.3f} '
+          f'ms (bound {bound_ms["forward"]:.3f} / {bound_ms["backward"]:.3f} ms, bytes), the '
+          f'Function\'s forward + backward {kernel_ms["forward_backward"]:.3f} ms; ATen\'s '
+          f'plain version forward {plain_ms["forward"]:.3f} ms, forward + backward '
+          f'{plain_ms["forward_backward"]:.3f} ms')
+    return shapes, worst, kernel_ms, plain_ms, bound_ms
 
 
 def warp_bound_ms(pixels):
@@ -815,6 +910,7 @@ def annotate_run(dev, task, timed, label):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     nms_kernel.launches = 0
+    convs_before, gns_before = conv3d_kernel.launches, gn_elu_kernel.launches
     device_ms, wall_ms = [], []
     for i, (rgb, lidar) in enumerate(batches):
         if i == WARMUP:
@@ -831,6 +927,8 @@ def annotate_run(dev, task, timed, label):
             wall_ms.append((time.perf_counter() - t0) * 1e3)
     launches = nms_kernel.launches
     peak = torch.cuda.max_memory_allocated()
+    check_gn_launches(label, gn_elu_kernel.launches - gns_before,
+                      conv3d_kernel.launches - convs_before, task.compute_dtype)
     check(launches == SCALES * len(batches),
           f'NMS kernel launched {launches} times in {len(batches)} '
           f'annotation batches')
@@ -923,6 +1021,7 @@ def infer_run(dev, task, timed, label):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     nms_kernel.launches = 0
+    convs_before, gns_before = conv3d_kernel.launches, gn_elu_kernel.launches
     device_ms, encode_ms = [], []
     for i in range(WARMUP + timed):
         rgb, lidar = frames(6, i)
@@ -944,6 +1043,8 @@ def infer_run(dev, task, timed, label):
             device_ms.append(start.elapsed_time(end))
             encode_ms.append((t1 - t0) * 1e3)
     launches = nms_kernel.launches
+    check_gn_launches(label, gn_elu_kernel.launches - gns_before,
+                      conv3d_kernel.launches - convs_before, task.compute_dtype)
     check(depth_host.dtype == torch.uint16 and depth_host.shape == (B, H, W),
           f'depth wire {depth_host.dtype} {tuple(depth_host.shape)}')
     depth = wire.decode_depth_u16(depth_host)
@@ -1074,6 +1175,7 @@ def train_full(dev, cfg, batch, label, make_step=make_train_step, warmup=TRAIN_W
     params = state.parameters()
     torch.cuda.reset_peak_memory_stats()
     convs_before, warps_before = conv3d_kernel.launches, warp_kernel.launches
+    gns_before = gn_elu_kernel.launches
     warm = [step(state, batch, gen)['loss'] for _ in range(warmup)]
     torch.cuda.synchronize()
     tuning_peak = torch.cuda.max_memory_allocated()
@@ -1092,6 +1194,8 @@ def train_full(dev, cfg, batch, label, make_step=make_train_step, warmup=TRAIN_W
     convs = (conv3d_kernel.launches - convs_before) / (warmup + steps)
     check(conv3d_per_step is None or convs == conv3d_per_step,
           f'{label}: the 3-D conv kernel launched {convs:g} times a step')
+    gns = (gn_elu_kernel.launches - gns_before) / (warmup + steps)
+    check_gn_launches(label, gns, convs, task.compute_dtype)
     warps = (warp_kernel.launches - warps_before) / (warmup + steps)
     check(warps == warps_per_step, f'{label}: the warp kernel launched {warps:g} times a step')
     step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(steps)]
@@ -1114,7 +1218,8 @@ def train_full(dev, cfg, batch, label, make_step=make_train_step, warmup=TRAIN_W
             f'{peak / 2**30:.3f} GiB (warm-up with cuDNN autotuning '
             f'{tuning_peak / 2**30:.3f} GiB); {moved} of {len(before)} parameter tensors '
             f'and {stats_moved} of {len(stats_before)} running statistics moved; '
-            f'3-D conv kernel launches a step {convs:g}, warp kernel launches a step {warps:g}')
+            f'3-D conv kernel launches a step {convs:g}, warp kernel launches a step {warps:g}, '
+            f'GroupNorm + ELU kernel launches a step {gns:g}')
     print(line)
     for i, r in enumerate(rows):
         print(f'{label} step {i}: {step_ms[i]:.3f} ms, '
@@ -1808,6 +1913,12 @@ def step_band(got, want16, want32):
     out = {'loss': abs(got['loss'] - want16[0]) / abs(want16[0]),
            'grad': tensor_errs(got['grads'], want16[1], want32[1]),
            'stats': tensor_errs(stats(got['state']), stats(want16[2]), stats(want32[2]))}
+    print(f'12b bf16 readings, the sharded step against the unsharded bf16 one (the card\'s '
+          f'bf16-vs-fp32 gaps in brackets): loss {out["loss"]:.3e} [{gap["loss"]:.3e}], '
+          f'gradients median / max {out["grad"][0]:.3e} / {out["grad"][1]:.3e} '
+          f'[{gap["grad"][0]:.3e} / {gap["grad"][1]:.3e}], running statistics '
+          f'{out["stats"][0]:.3e} / {out["stats"][1]:.3e} [{gap["stats"][0]:.3e} / '
+          f'{gap["stats"][1]:.3e}]; band {BAND:g}x', flush=True)
     check(out['loss'] <= BAND * gap['loss'], f'12b bf16 loss {out["loss"]:.3e} > {BAND} x '
           f'{gap["loss"]:.3e}')
     within_card_band('12b bf16 gradients', out['grad'], gap['grad'])
@@ -2041,6 +2152,11 @@ def phase_rank_pair(dev, request, want):
           f'{PAIR_CUDNN_LIMIT} candidates a conv), the slower rank\'s seconds by job: '
           + ', '.join(f'{k} {v:.1f}' for k, v in job_s.items())
           + f'; the unsharded oracles\' NMS launches {plain_launches}')
+    sharded_gns = {name: [out['gn_elu_launches'] for out in res[name]]
+                   for name in ('12b', '12c', '12b bf16', '12c bf16')}
+    print(f'phase 12b-c GroupNorm + ELU kernel launches in the sharded ranks: {sharded_gns}')
+    check(all(n == 0 for v in sharded_gns.values() for n in v),
+          f'the GroupNorm + ELU kernel launched in the sharded ranks: {sharded_gns}')
     check(plain_launches == 0, f'NMS kernel launched {plain_launches} times in the oracles')
     return {name: sum(out['nms_launches'] for out in outs) for name, outs in res.items()
             if name != 'gloo bf16'}
@@ -2285,14 +2401,15 @@ def main():
     t0 = time.perf_counter()
     print(f'torch {torch.__version__} cuda {torch.version.cuda} on '
           f'{torch.cuda.get_device_name(0)}')
-    walls, convs, warps = {}, {}, {}
+    walls, convs, warps, gns = {}, {}, {}, {}
 
     def timed(name, fn, *args):
         t = time.perf_counter()
-        conv3d_kernel.launches = warp_kernel.launches = 0
+        conv3d_kernel.launches = warp_kernel.launches = gn_elu_kernel.launches = 0
         out = fn(*args)
         convs[name] = conv3d_kernel.launches
         warps[name] = warp_kernel.launches
+        gns[name] = gn_elu_kernel.launches
         walls[name] = time.perf_counter() - t
         return out
 
@@ -2301,9 +2418,10 @@ def main():
     timed('3', phase_small_slice, dev)
     launches4, prob, bad4, err4, *_ = timed('4', phase_serve, dev)
     kernel_ms, plain_ms, bound_ms, bound_by = timed('nms timing', time_nms, prob)
-    checked3d, worst3d, conv3d_ms, conv3d_plain_ms, conv3d_bound, conv3d_by = timed(
-        'conv3d', phase_conv3d, dev)
+    checked3d, worst3d, conv3d_ms, conv3d_plain_ms, conv3d_bound, conv3d_by, conv3d_shape_ms = \
+        timed('conv3d', phase_conv3d, dev)
     warp_shapes, warp_worst, warp_ms, warp_plain_ms, warp_bound = timed('warp', phase_warp, dev)
+    gn_shapes, gn_worst, gn_ms, gn_plain_ms, gn_bound = timed('gn_elu', phase_gn_elu, dev)
     launches5, px5, bad5, err5 = timed('5', phase_annotate, dev, kernel_ms)
     launches6 = timed('6', phase_infer, dev)
     nms_kernel.launches = 0
@@ -2365,6 +2483,9 @@ def main():
     check(launches14 == 0, f'NMS kernel launched {launches14} times in phase 14')
     for name in ('4', '5', '6', '10a', '10b', '10c'):
         check(warps[name] == 0, f'warp kernel launched {warps[name]} times in phase {name}')
+    for name in ('4', 'conv3d', 'warp', '7b', '8c', '13c'):
+        check(gns[name] == 0, f'GroupNorm + ELU kernel launched {gns[name]} times in fp32 '
+                              f'phase {name}')
     print('phase wall times (s): ' + ', '.join(f'{k} {v:.1f}' for k, v in walls.items()))
     print(f'chip_smoke wall time {time.perf_counter() - t0:.1f} s')
     card = card_line()
@@ -2415,7 +2536,9 @@ def main():
         'tolerance': 'fp32 rtol 1e-5 atol 1e-6 of F.conv3d; bf16 1 ulp of the fp32 '
                      'conv of the same operands plus the fp32 sums\' rounding',
         'ms': conv3d_ms, 'plain_ms': conv3d_plain_ms, 'bound_ms': conv3d_bound,
-        'bound_by': conv3d_by,
+        'bound_by': conv3d_by, 'bf16_shape_ms': conv3d_shape_ms,
+        'layouts': {'bf16': 'NCHW in and out', 'bf16_nhwc': 'channels-last in and out, '
+                    'the bf16 networks\' layout'},
         'library_ms': conv3d_plain_ms}, {
         'name': 'warp_geometry', 'route': 'cuda',
         'source': 'mindtheedge_tpu_torch/csrc/warp_kernel.cu',
@@ -2430,7 +2553,23 @@ def main():
         'tolerance': 'coords and depth gradient per element, pose gradient per frame: '
                      'at most 2 x the plain fp32 chain\'s error against its fp64, or 1e-5',
         'ms': warp_ms, 'plain_ms': warp_plain_ms, 'bound_ms': warp_bound,
-        'bound_by': 'bytes', 'library_ms': None}]}))
+        'bound_by': 'bytes', 'library_ms': None}, {
+        'name': 'groupnorm_elu_nhwc', 'route': 'cuda',
+        'source': 'mindtheedge_tpu_torch/csrc/gn_elu_kernel.cu',
+        'replaces': None,
+        'in_place_of': "ATen's GroupNorm (NCHW) + ELU on the bf16 path, and the layout "
+                       "copies around it",
+        'launches': sum(gns.values()),
+        'launches_in_process_by_phase': gns,
+        'launches_a_pass': {'bf16_unsharded': GN_PER_PASS, 'fp32': 0, 'sharded': 0},
+        'max_err_over_tolerance': gn_worst, 'checked_shapes': gn_shapes,
+        'tolerance': 'y within 0.5 bf16 ulp + 1e-5 (1 + |z|) of fp64; dx, dweight, dbias '
+                     'within 1 bf16 ulp + 1e-4 of the largest of fp64; closer to fp64 than '
+                     'ATen, within 5 % relative L2 of it',
+        'ms': gn_ms, 'plain_ms': gn_plain_ms, 'bound_ms': gn_bound,
+        'bound_by': 'bytes', 'ms_are': f'the {GN_PER_PASS} GroupNorms of a PackNet01 FULL '
+                                      f'pass at {list(GN_SHAPE)}',
+        'library_ms': gn_plain_ms}]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -10,15 +10,24 @@
 // ops/blocks.py:Conv3dOverChannels on the CPU).  Wrapper:
 // mindtheedge_tpu_torch/ops/cuda/conv3d_kernel.py.  Times: PERF.md.
 //
-// What it computes: x [B,D,H,W] (contiguous), weight [d,1,3,3,3], bias [d]
-// -> out [B,d,D,H,W] (contiguous; the caller views it as [B,d*D,H,W],
-// channel f*D + z holding feature f at depth z):
+// What it computes: x [B,D,H,W], weight [d,1,3,3,3], bias [d] -> out
+// [B,d*D,H,W], channel f*D + z holding feature f at depth z:
 //   out[b,f,z,y,x] = bias[f] + sum over (kz,ky,kx) of
 //                    weight[f,0,kz,ky,kx] * x[b, z+kz-1, y+ky-1, x+kx-1],
 // zero padding of 1 on all three axes, stride 1, d = 4 or 8, float32 or
-// bfloat16 storage.  The 27 taps are summed in fp32 by fmaf in the order
-// (kz, ky, kx), the bias is added in fp32 and the sum is rounded once to the
-// storage type (__floats2bfloat162_rn: round to nearest even).
+// bfloat16 storage, in one of two layouts:
+//  * NCHW (layout 0): x contiguous [B,D,H,W], out contiguous [B,d,D,H,W];
+//  * NHWC (layout 1, the bf16 networks' channels-last activations): x
+//    contiguous [B,H,W,D], out contiguous [B,H,W,d,D], i.e. channels-last
+//    [B,D,H,W] and [B,d*D,H,W].  The conv is symmetric in its three axes, so
+//    the kernel below runs the same stencil with the axes in memory order:
+//    its "depth" is the image's rows, its "rows" the image's columns and its
+//    "columns" the channels, the taps permuted to match, and each output
+//    feature written D elements apart inside a pixel.
+// The 27 taps are summed in fp32 by fmaf in the order of the kernel's axes,
+// (kz, ky, kx) in NCHW and (y, x, z) in NHWC, the bias is added in fp32 and
+// the sum is rounded once to the storage type (__floats2bfloat162_rn: round
+// to nearest even).
 //
 // Bound on the H100: each input element is read once and each of the d
 // outputs written once, and each output costs 27 FMAs.  A batch-4 request's
@@ -60,7 +69,10 @@
 //    sized from the shape so that the grid holds about four waves of the
 //    blocks that fit on the card at once, chunks of at least 4 depths: from
 //    pack1 (D 128 at 192x640, 120 tiles an image) to pack5 (D 2048 at 12x40,
-//    one tile an image) every shape launches hundreds of blocks or more.
+//    one tile an image) every shape launches hundreds of blocks or more.  In
+//    NHWC a tile is up to 128 channels of a run of pixels along a row, and
+//    a block walks a chunk of the image's rows: a warp's stores then cover
+//    128 contiguous channels of one pixel.
 //  * Edges.  Any B, D, H, W >= 1: zero planes, rows and columns outside the
 //    volume.  With W % 4 == 0 and aligned pointers, cp.async chunks (the VEC
 //    form, zero-filled outside); otherwise plain element loads into the
@@ -164,10 +176,12 @@ template <> struct Io<__nv_bfloat16> {
 };
 
 struct Geometry {
-  int batch, depth, h, w;      // the input [B,D,H,W]
+  int batch, depth, h, w;      // the input [B,D,H,W] in the kernel's axes (NHWC: [B,H,W,D])
   int tile_h, tile_w;          // output rows and columns of a block's tile
   int tiles_h, tiles_w;        // tiles across H and W
   int chunk;                   // depths a block walks
+  bool nhwc;                   // the taps' axes: (y, x, z) of the image where set
+  size_t out_batch, out_feature, out_plane, out_row;   // the output's strides
 };
 
 template <typename T, int F, bool VEC>
@@ -180,8 +194,10 @@ conv3d_over_channels_kernel(const T* __restrict__ x, const T* __restrict__ weigh
   __shared__ float biases[F];
 
   const int tid = threadIdx.x, threads = blockDim.x;
-  for (int i = tid; i < 27 * F; i += threads)       // weight [F,1,3,3,3]
-    taps[i % 27][i / 27] = Io<T>::load1(weight + i);
+  for (int i = tid; i < 27 * F; i += threads) {     // weight [F,1,3,3,3]: (f, kz, ky, kx)
+    const int t = i % 27;
+    taps[g.nhwc ? (t / 3 % 3) * 9 + (t % 3) * 3 + t / 9 : t][i / 27] = Io<T>::load1(weight + i);
+  }
   if (tid < F) biases[tid] = Io<T>::load1(bias + tid);
 
   int blk = blockIdx.x;
@@ -234,9 +250,8 @@ conv3d_over_channels_kernel(const T* __restrict__ x, const T* __restrict__ weigh
     for (int r = 0; r < 3; ++r) Io<T>::row6(buf + (ry + r) * stride + P * (tx + 1), w[r]);
   };
 
-  T* ob = out + (static_cast<size_t>(b) * F * g.depth + z0) * hw +
-          static_cast<size_t>(y) * g.w + xo;
-  const size_t feature_stride = static_cast<size_t>(g.depth) * hw;
+  T* ob = out + static_cast<size_t>(b) * g.out_batch + static_cast<size_t>(z0) * g.out_plane +
+          static_cast<size_t>(y) * g.out_row + xo;
 
   // plane j = z - (z0 - 1) lives in ring[j % RING]: planes 0 .. RING-1 in
   // flight, 0 and 1 into the window slots 0 and 1 (the first barrier also
@@ -283,9 +298,9 @@ conv3d_over_channels_kernel(const T* __restrict__ x, const T* __restrict__ weigh
           }
         }
     if (stores) {
-      T* o = ob + static_cast<size_t>(k) * hw;
+      T* o = ob + static_cast<size_t>(k) * g.out_plane;
 #pragma unroll
-      for (int f = 0; f < F; ++f, o += feature_stride) {
+      for (int f = 0; f < F; ++f, o += g.out_feature) {
         const float bf = biases[f];
         if (VEC) {
           Io<T>::store4(o, acc[f][0] + bf, acc[f][1] + bf, acc[f][2] + bf, acc[f][3] + bf);
@@ -345,32 +360,48 @@ cudaError_t launch_typed(const void* x, const void* weight, const void* bias, vo
 
 }  // namespace
 
-// Launch on `stream` (a cudaStream_t) for contiguous x [batch, depth, h, w],
-// weight [features, 1, 3, 3, 3], bias [features] and out
-// [batch, features, depth, h, w], all of one dtype: 0 float32, 1 bfloat16;
-// features 4 or 8; every size >= 1 and h, w < 2^30.  Returns a cudaError_t:
-// the launch's, from cudaGetLastError().
+// Launch on `stream` (a cudaStream_t) for x [batch, depth, h, w], weight
+// [features, 1, 3, 3, 3], bias [features] and out [batch, features * depth, h,
+// w], all of one dtype: 0 float32, 1 bfloat16; features 4 or 8; layout 0
+// (NCHW: x and out contiguous) or 1 (NHWC: x contiguous as [batch, h, w,
+// depth], out as [batch, h, w, features * depth]); every size >= 1 and h, w,
+// depth < 2^30.  Returns a cudaError_t: the launch's, from cudaGetLastError().
 extern "C" int mte_conv3d_over_channels(const void* x, const void* weight, const void* bias,
-                                        void* out, int dtype, int features, int batch,
-                                        int depth, int h, int w, void* stream) {
-  if ((dtype != 0 && dtype != 1) || (features != 4 && features != 8) || batch < 1 ||
-      depth < 1 || h < 1 || w < 1 || h >= (1 << 30) || w >= (1 << 30))
+                                        void* out, int dtype, int features, int layout,
+                                        int batch, int depth, int h, int w, void* stream) {
+  if ((dtype != 0 && dtype != 1) || (features != 4 && features != 8) ||
+      (layout != 0 && layout != 1) || batch < 1 || depth < 1 || h < 1 || w < 1 ||
+      h >= (1 << 30) || w >= (1 << 30) || depth >= (1 << 30))
     return static_cast<int>(cudaErrorInvalidValue);
   Geometry g{};
   g.batch = batch;
-  g.depth = depth;
-  g.h = h;
-  g.w = w;
-  g.tiles_w = ceil_div(w, MAX_TILE_W);
-  g.tile_w = ceil_div(ceil_div(w, g.tiles_w), P) * P;
+  g.nhwc = layout == 1;
+  // the kernel's axes: (depth, rows, columns) = (D, H, W) or (H, W, D)
+  g.depth = g.nhwc ? h : depth;
+  g.h = g.nhwc ? w : h;
+  g.w = g.nhwc ? depth : w;
+  const size_t plane = static_cast<size_t>(g.h) * g.w;
+  if (g.nhwc) {               // out [B, H, W, F, D]
+    g.out_row = static_cast<size_t>(features) * g.w;
+    g.out_plane = g.out_row * g.h;
+    g.out_batch = g.out_plane * g.depth;
+    g.out_feature = g.w;
+  } else {                    // out [B, F, D, H, W]
+    g.out_row = g.w;
+    g.out_plane = plane;
+    g.out_feature = plane * g.depth;
+    g.out_batch = g.out_feature * features;
+  }
+  g.tiles_w = ceil_div(g.w, MAX_TILE_W);
+  g.tile_w = ceil_div(ceil_div(g.w, g.tiles_w), P) * P;
   const int quads = g.tile_w / P;
-  g.tiles_h = ceil_div(h, std::min(MAX_TILE_H, MAX_THREADS / quads));
-  g.tile_h = ceil_div(h, g.tiles_h);
+  g.tiles_h = ceil_div(g.h, std::min(MAX_TILE_H, MAX_THREADS / quads));
+  g.tile_h = ceil_div(g.h, g.tiles_h);
   const int threads = ceil_div(g.tile_h * quads, 32) * 32;
   if ((g.tile_h + 2) * (g.tile_w + 8) > PLANE || threads > MAX_THREADS)   // the ring's planes
     return static_cast<int>(cudaErrorInvalidConfiguration);
   const size_t align = dtype == 0 ? 16 : 8;
-  const bool vec = w % P == 0 &&
+  const bool vec = g.w % P == 0 &&
       (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) % align == 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =

@@ -2,9 +2,9 @@
 ``mindtheedge_tpu/models/packnet.py`` (reference ``PackNetSAN01.py``,
 ``PackNet01.py``, ``PackNetSlim01.py``).
 
-NCHW inside; each network's ``forward`` takes and returns NHWC like the
-JAX modules.  The ``state_dict`` keys are the reference PackNetSAN01
-names.
+[B,C,H,W] inside, NCHW or channels-last by ``ops/blocks.nhwc``; each
+network's ``forward`` takes and returns NHWC like the JAX modules.  The
+``state_dict`` keys are the reference PackNetSAN01 names.
 """
 
 import math
@@ -16,8 +16,8 @@ from mindtheedge_tpu_torch import resolve_device
 from mindtheedge_tpu_torch.config.defaults import REMAT_MODES, checked
 from mindtheedge_tpu_torch.ops import remat
 from mindtheedge_tpu_torch.ops.blocks import (
-    ConvBlock, InvDepthHead, PackLayerConv3d, ResidualBlock, UnpackLayerConv3d)
-from mindtheedge_tpu_torch.ops.packing import upsample_nearest2x
+    ConvBlock, InvDepthHead, PackLayerConv3d, ResidualBlock, UnpackLayerConv3d, lay_out_weights)
+from mindtheedge_tpu_torch.ops.packing import channels_last, upsample_nearest2x
 from mindtheedge_tpu_torch.ops.sparse import MinkConv, SparseDepthEncoder
 from mindtheedge_tpu_torch.utils.profiling import span
 
@@ -126,9 +126,13 @@ class PackNetDecoder(nn.Module):
 
     def _join(self, unpacked, skip, *rest):
         """The iconv's input: [unpacked, skip] (A) or [unpacked + skip]
-        (B), then ``rest``, on channels."""
-        parts = [unpacked, skip] if self.concat else [unpacked + skip]
-        return torch.cat(parts + list(rest), 1)
+        (B), then ``rest``, on channels, in ``unpacked``'s layout: a
+        channels-last join concatenates the NHWC views, since ``torch.cat``
+        of a 1-channel map whose strides read NCHW would return NCHW."""
+        parts = ([unpacked, skip] if self.concat else [unpacked + skip]) + list(rest)
+        if channels_last(unpacked):
+            return torch.cat([p.permute(0, 2, 3, 1) for p in parts], -1).permute(0, 3, 1, 2)
+        return torch.cat(parts, 1)
 
     def forward(self, x5p, skips):
         skip1, skip2, skip3, skip4, skip5 = skips
@@ -334,11 +338,13 @@ def to_device(model, device=None, dtype=torch.float32):
     at each input shape pays for the tuning) and TF32 off in convs and
     matmuls: the fp32 path runs in strict fp32, the precision of the JAX
     reference and of every parity test (PyTorch's default lets cuDNN's
-    convs run in TF32).  bf16 convs do not read the flag.
+    convs run in TF32).  bf16 convs do not read the flag.  The 4-D conv
+    weights are laid out once in the activations' layout
+    (``ops/blocks.lay_out_weights``: channels-last in bf16 on the card).
     """
     device = resolve_device(device)
     _cuda_fp32(device)
-    return model.to(device=device, dtype=dtype).eval()
+    return lay_out_weights(model.to(device=device, dtype=dtype).eval())
 
 
 def to_train_device(model, device=None):

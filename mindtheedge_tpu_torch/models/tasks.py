@@ -46,6 +46,7 @@ from mindtheedge_tpu_torch.models.model_utils import upsample_output
 from mindtheedge_tpu_torch.models.packnet import PackNet01, PackNetSAN, PackNetSlim01, to_device
 from mindtheedge_tpu_torch.models.posenet import PoseNet
 from mindtheedge_tpu_torch.models.resnet import DepthResNet, PoseResNet, RaySurfaceResNet
+from mindtheedge_tpu_torch.ops.blocks import weight_format
 from mindtheedge_tpu_torch.training.checkpoint import restore_depth_net, restore_pose_net
 from mindtheedge_tpu_torch.utils.depth import depth2inv, inv2depth
 from mindtheedge_tpu_torch.utils.image import flip_lr, match_scales, resize_bilinear
@@ -232,7 +233,10 @@ class BaseTask:
         if dtype == torch.float32:
             return net(rgb, lidar, generator, rgb_edge)
         cast = lambda t: t.to(dtype) if t is not None and t.dtype == torch.float32 else t
-        params = {n: p.to(dtype) for n, p in net.named_parameters()}
+        conv_format = weight_format(dtype, self.device, getattr(net, 'space', None))
+        params = {n: p.to(dtype, memory_format=conv_format if p.dim() == 4 else
+                          torch.preserve_format)
+                  for n, p in net.named_parameters()}
         return torch.func.functional_call(
             net, params, (cast(rgb), cast(lidar), generator, cast(rgb_edge)))
 

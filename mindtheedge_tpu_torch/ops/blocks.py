@@ -1,4 +1,4 @@
-"""PackNet building blocks, NCHW: the plain formulation of
+"""PackNet building blocks on [B,C,H,W]: the plain formulation of
 ``mindtheedge_tpu/ops/blocks.py``.
 
 Module and parameter names follow the reference PackNetSAN01 layers
@@ -13,16 +13,49 @@ is set by ``spatial.shard_network``: its convs with ``k > 1`` then take a
 halo from the neighbouring blocks and run unpadded in the sharded
 dimensions, and GroupNorm takes its statistics over the whole frame.  With
 ``space`` None (the default) every block computes as before.
+
+The activations' layout follows :func:`nhwc`: NHWC (``torch.channels_last``)
+where they are bf16 on the card and the network is unsharded, NCHW elsewhere.
+The layout is set where a tensor is made (the conv weights, by
+:func:`weight_format` and :func:`lay_out_weights`; the GroupNorm + ELU
+kernel's output) and every op in between keeps the layout it is given.
 """
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from mindtheedge_tpu_torch.ops.cuda import conv3d_kernel
+from mindtheedge_tpu_torch.ops.cuda import conv3d_kernel, gn_elu_kernel
 from mindtheedge_tpu_torch.ops.packing import pack2d, unpack2d
 from mindtheedge_tpu_torch.parallel import spatial
 from mindtheedge_tpu_torch.utils.profiling import span
+
+
+def nhwc(dtype, device, space=None):
+    """The activation layout rule: True (NHWC, ``torch.channels_last``) where
+    the activations are bf16 on the card and the block is unsharded
+    (``space`` None), False (NCHW) elsewhere.  cuDNN's bf16 convs are NHWC
+    and transpose NCHW operands around every call; its fp32 convs are NCHW;
+    the CPU and spatial sharding (``parallel/spatial.py``) keep NCHW."""
+    return dtype == torch.bfloat16 and torch.device(device).type == 'cuda' and space is None
+
+
+def weight_format(dtype, device, space=None):
+    """The memory format of a 4-D conv weight on the activations' path
+    (:func:`nhwc`), so that cuDNN does not copy it a call."""
+    return torch.channels_last if nhwc(dtype, device, space) else torch.contiguous_format
+
+
+def lay_out_weights(net, space=None):
+    """Lay ``net``'s 4-D conv weights out in :func:`weight_format` of their
+    own dtype and device, in place -> ``net``.  ``models/packnet.to_device``
+    and ``spatial.shard_network`` call it; the training step casts its fp32
+    masters per step (``models/tasks.py``)."""
+    with torch.no_grad():
+        for p in net.parameters():
+            if p.dim() == 4:
+                p.data = p.data.contiguous(memory_format=weight_format(p.dtype, p.device, space))
+    return net
 
 
 class GroupNorm(nn.GroupNorm):
@@ -32,8 +65,10 @@ class GroupNorm(nn.GroupNorm):
     ``arch.precision: bfloat16``); ``F.group_norm`` accumulates the
     statistics in fp32 for bf16 input and rounds the output once, where the
     JAX package rounds its fp32 scale and shift to bf16 first.  Both stay
-    inside the bf16 band of tests/test_torch_bf16.py.  Under ``space``
-    the statistics are the whole frame's (``spatial.group_norm``).
+    inside the bf16 band of tests/test_torch_bf16.py.  (On the card ATen's
+    bf16 kernels keep the mean and rstd in bf16; the NHWC path's kernel
+    pair, :meth:`elu`, keeps them in fp32.)  Under ``space`` the statistics
+    are the whole frame's (``spatial.group_norm``).
     """
 
     space = None
@@ -46,6 +81,20 @@ class GroupNorm(nn.GroupNorm):
             return spatial.group_norm(x, self.num_groups, self.weight, self.bias,
                                       self.eps, self.space)
         return F.group_norm(x, self.num_groups, self.weight, self.bias, self.eps)
+
+    def elu(self, x):
+        """ELU of this GroupNorm of ``x``: on the NHWC path (:func:`nhwc`)
+        the kernel pair ``csrc/gn_elu_kernel.cu``, which keeps ``x``'s
+        layout and rounds once; sharded on the card the same arithmetic,
+        ``F.elu`` of ``spatial.group_norm``'s fp32 output rounded once;
+        elsewhere ``F.elu`` of :meth:`forward` (ATen's GroupNorm, whose CUDA
+        kernels read NCHW; on the CPU a bf16 output rounds twice, as the JAX
+        package's does)."""
+        if nhwc(x.dtype, x.device, self.space):
+            return gn_elu_kernel.GroupNormEluFn.apply(x, self.weight, self.bias, self.eps)
+        if self.space is not None and x.device.type == 'cuda':
+            return F.elu(self(x.float())).to(x.dtype)
+        return F.elu(self(x))
 
 
 class ConvBlock(nn.Module):
@@ -61,8 +110,8 @@ class ConvBlock(nn.Module):
 
     def forward(self, x):
         conv = self.conv_base
-        return F.elu(self.normalize(spatial.sharded_conv(x, conv.weight, conv.bias, self.space,
-                                                         conv.stride[0])))
+        return self.normalize.elu(spatial.sharded_conv(x, conv.weight, conv.bias, self.space,
+                                                       conv.stride[0]))
 
 
 def dropout_keep(batch, channels, rate, device, generator=None):
@@ -99,7 +148,7 @@ class ResidualConv(nn.Module):
         shortcut = self.conv3(x)
         if self.dropout and self.training:
             shortcut = channel_dropout(shortcut, self.dropout, keep)
-        return F.elu(self.normalize(self.conv2(self.conv1(x)) + shortcut))
+        return self.normalize.elu(self.conv2(self.conv1(x)) + shortcut)
 
 
 class ResidualBlock(nn.Sequential):
@@ -147,8 +196,9 @@ class Conv3dOverChannels(nn.Conv3d):
     on all three axes.  The conv is the span ``mte.net.conv3d``
     (``utils/profiling.py``).  Unsharded on the card it is the kernel
     ``csrc/conv3d_kernel.cu`` (``ops/cuda/conv3d_kernel``), which takes
-    float32 and bfloat16 and raises on any other dtype; on the CPU
-    ``F.conv3d``, its plain version; under ``space`` the sharded conv.
+    float32 and bfloat16, NCHW or channels-last, returns its input's layout
+    and raises on any other dtype; on the CPU ``F.conv3d``, its plain
+    version; under ``space`` the sharded conv.
     """
 
     space = None

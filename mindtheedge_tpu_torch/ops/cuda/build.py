@@ -20,7 +20,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / 'build' / 'kernels'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
-KERNELS = ('conv3d_kernel', 'nms_kernel', 'warp_kernel')     # every csrc/<name>.cu
+KERNELS = ('conv3d_kernel', 'gn_elu_kernel', 'nms_kernel', 'warp_kernel')  # every csrc/<name>.cu
 
 _loaded = {}
 

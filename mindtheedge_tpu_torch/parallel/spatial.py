@@ -343,7 +343,10 @@ def group_norm(x, num_groups, weight, bias, eps, space):
 
 def shard_network(net, space):
     """Set ``space`` on every block of ``net`` that takes one (None: the
-    plain network again) -> ``net``.  Parameters and buffers do not change.
+    plain network again) -> ``net``.  Parameters and buffers keep their
+    values; the 4-D conv weights take the layout of the network's
+    activations (``ops/blocks.lay_out_weights``: NCHW under a ``space``),
+    and ``net.space`` records ``space`` for the training step's casts.
     The PackNet networks (PackNet-SAN, ``PackNet01``, ``PackNetSlim01``)
     are built of such blocks; a network without any (the ResNets, as in
     the JAX package) raises (``spatial.py:260-261``).  The ResNets'
@@ -351,12 +354,14 @@ def shard_network(net, space):
     sets it (``parallel/mesh.make_sharded_train_step``): their convs do not
     exchange halos."""
     from mindtheedge_tpu_torch.models.resnet import BatchNorm2d
+    from mindtheedge_tpu_torch.ops.blocks import lay_out_weights
     blocks = [m for m in net.modules() if hasattr(m, 'space') and not isinstance(m, BatchNorm2d)]
     if not blocks:
         raise ValueError(f'{type(net).__name__} has no spatial support')
     for m in blocks:
         m.space = space
-    return net
+    net.space = space
+    return lay_out_weights(net, space)
 
 
 def make_spatial_infer(net, space, with_depth=False):

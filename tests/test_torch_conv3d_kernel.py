@@ -1,7 +1,8 @@
 """The pack layers' 3-D conv on the CPU: the autograd of the card's kernel
 (``ops/cuda/conv3d_kernel.Conv3dOverChannelsFn``), with the plain forward in
 the kernel's place, against autograd of ``F.conv3d`` bit for bit, plain and
-under ``ops/remat.py``'s checkpoint; and ``Conv3dOverChannels`` on the CPU,
+under ``ops/remat.py``'s checkpoint, and for a channels-last input (the
+NHWC path) to fp32's rounding; and ``Conv3dOverChannels`` on the CPU,
 which stays ``F.conv3d`` and counts no kernel launch.  The kernel itself
 runs only on the card (tests/test_torch_conv3d_kernel_cuda.py).
 """
@@ -12,6 +13,7 @@ import torch.nn.functional as F
 
 from mindtheedge_tpu_torch.ops import blocks, remat
 from mindtheedge_tpu_torch.ops.cuda import conv3d_kernel
+from mindtheedge_tpu_torch.ops.packing import channels_last
 from mindtheedge_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
@@ -69,6 +71,39 @@ def test_function_gradients_bit_equal(plain_forward, d, policy):
     assert len(plain_forward) == (1 if policy is None else 2)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.fixture
+def plain_forward_nhwc(monkeypatch):
+    """The plain version in the kernel's place, its output in the input's
+    layout as the kernel writes it."""
+    def launch(x, weight, bias):
+        y = conv3d_kernel.plain(x, weight, bias)
+        return y.contiguous(memory_format=torch.channels_last) if channels_last(x) else y
+
+    monkeypatch.setattr(conv3d_kernel, 'launch', launch)
+
+
+@pytest.mark.parametrize('d', [4, 8])
+@pytest.mark.parametrize('policy', [None, True], ids=['plain', 'remat'])
+def test_function_nhwc_gradients(plain_forward_nhwc, d, policy):
+    """A channels-last input: the Function's backward runs the conv with its
+    axes in memory order (H, W, D); the gradients equal autograd of
+    ``F.conv3d`` to fp32's rounding, and the input's comes back
+    channels-last."""
+    upstream = torch.randn(SHAPE[0], d * SHAPE[1], *SHAPE[2:],
+                           generator=torch.Generator().manual_seed(1))
+    wrap = (lambda fn: fn) if policy is None else (
+        lambda fn: lambda *t: remat.checkpoint(fn, *t, policy=policy))
+    want = grads(wrap(reference), leaves(d), upstream)
+    x, weight, bias = leaves(d)
+    x = x.detach().contiguous(memory_format=torch.channels_last).requires_grad_()
+    out = wrap(kernel_fn)(x, weight, bias)
+    assert channels_last(out)
+    (out * upstream.contiguous(memory_format=torch.channels_last)).sum().backward()
+    assert channels_last(x.grad)
+    for g, w in zip((x.grad, weight.grad, bias.grad), want):     # sums in another order
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5 * float(w.abs().max()))
 
 
 def test_function_input_gradient_only(plain_forward):

@@ -3,7 +3,10 @@ on the card: against ``F.conv3d`` with TF32 off at the ten shapes of a
 batch-4 request at 384x1280 (PackNet-SAN, SLIM widths), at those of a
 batch-3 training step of PackNet01 at FULL widths (each printing the
 wrapper's ms), and at ragged ones;
-its gradients against ``F.conv3d``'s autograd, bit for bit; the wrapper's
+its gradients against ``F.conv3d``'s autograd, bit for bit; the same in
+the NHWC layout (a channels-last input and output, the bf16 networks' path)
+at the training shapes and ragged ones, its gradients to fp32's rounding
+(the backward runs the conv with its axes in memory order); the wrapper's
 checks, and the module's refusal of other dtypes on the card; and the
 launches of one serving request and one training step.
 
@@ -30,6 +33,7 @@ import torch
 
 from mindtheedge_tpu_torch import serve
 from mindtheedge_tpu_torch.ops.cuda import conv3d_kernel
+from mindtheedge_tpu_torch.ops.packing import channels_last
 from mindtheedge_tpu_torch.utils import profiling
 
 # name: (D, H, W) of each conv's input in a batch-4 request at 384x1280
@@ -84,13 +88,15 @@ def bf16_ulp(v):
 
 def check_against_conv3d(x, weight, bias):
     """The kernel once against ``F.conv3d`` -> the largest error over its
-    tolerance (at most 1 passes)."""
+    tolerance (at most 1 passes).  The output keeps ``x``'s layout."""
     before = conv3d_kernel.launches
     got = conv3d_kernel.launch(x, weight, bias)
     torch.cuda.synchronize()
     assert conv3d_kernel.launches == before + 1
     b, depth, h, w = x.shape
     assert got.shape == (b, weight.shape[0] * depth, h, w) and got.dtype == x.dtype
+    assert channels_last(got) == channels_last(x)
+    x = x.contiguous()
     if x.dtype == torch.float32:
         want = conv3d_kernel.plain(x, weight, bias)
         err = (got - want).abs() / (1e-6 + 1e-5 * want.abs())
@@ -132,6 +138,63 @@ def test_kernel_ragged_shapes_on_card(cuda_card, no_tf32, shape, dtype):
     shifted = flat[1:].view(x.shape)
     shifted.copy_(x)
     assert check_against_conv3d(shifted, weight, bias) <= 1.0
+
+
+def nhwc(t):
+    return t.contiguous(memory_format=torch.channels_last)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16], ids=['fp32', 'bf16'])
+@pytest.mark.parametrize('name', list(FULL_SHAPES))
+def test_kernel_nhwc_packnet01_full_shapes_on_card(cuda_card, no_tf32, name, dtype):
+    x, weight, bias = operands(FULL_B, *FULL_SHAPES[name], FEATURES, dtype, cuda_card)
+    x = nhwc(x)
+    assert check_against_conv3d(x, weight, bias) <= 1.0
+    ms = event_ms(lambda: conv3d_kernel.launch(x, weight, bias), 20)
+    print(f'NHWC PackNet01 FULL {name} {[FULL_B, *FULL_SHAPES[name]]} {dtype}: {ms:.4f} ms')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16], ids=['fp32', 'bf16'])
+@pytest.mark.parametrize('shape', RAGGED, ids=['x'.join(map(str, s)) for s in RAGGED])
+def test_kernel_nhwc_ragged_shapes_on_card(cuda_card, no_tf32, shape, dtype):
+    *dims, d = shape
+    x, weight, bias = operands(*dims, d, dtype, cuda_card, seed=1)
+    assert check_against_conv3d(nhwc(x), weight, bias) <= 1.0
+    # 4 bytes past an aligned start: element-wise accesses
+    b, depth, h, w = x.shape
+    flat = torch.empty(x.numel() + 1, dtype=dtype, device=cuda_card)
+    shifted = flat[1:].view(b, h, w, depth).permute(0, 3, 1, 2)
+    shifted.copy_(x)
+    if depth > 1 and h * w > 1:
+        assert channels_last(shifted)
+    assert check_against_conv3d(shifted, weight, bias) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16], ids=['fp32', 'bf16'])
+def test_nhwc_gradients_on_card(cuda_card, no_tf32, dtype):
+    """The Function on a channels-last input: the gradients of ``F.conv3d``'s
+    autograd on the NCHW input, to the rounding of sums taken in another
+    order (fp32 rtol 1e-4 of the largest; bf16 a ulp of the largest), the
+    input's gradient channels-last."""
+    x, weight, bias = operands(2, 16, 24, 40, FEATURES, dtype, cuda_card, seed=2)
+    grad = torch.randn(2, FEATURES * 16, 24, 40, generator=torch.Generator().manual_seed(3))
+    grad = grad.to(cuda_card, dtype)
+    grads = []
+    for fn, layout in ((conv3d_kernel.Conv3dOverChannelsFn.apply, nhwc),
+                       (conv3d_kernel.plain, lambda t: t)):
+        leaves = [layout(x).requires_grad_()] + [t.clone().requires_grad_()
+                                                 for t in (weight, bias)]
+        (fn(*leaves) * layout(grad)).sum().backward()
+        grads.append([t.grad for t in leaves])
+    assert channels_last(grads[0][0])
+    rtol = 1e-4 if dtype == torch.float32 else 2 ** -7
+    for got, want in zip(*grads):
+        assert got.dtype == want.dtype
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=rtol * float(want.float().abs().max()))
 
 
 @pytest.mark.cuda

@@ -95,7 +95,7 @@ def test_conv3d_clocks_agree_bf16(cuda_card):
     assert kernel_ms > 0 and abs(event_ms - kernel_ms) <= AGREE * kernel_ms
     for r in recs:
         assert r['counters'] == {'h2d_bytes': rgb_u8.nbytes + lidar.nbytes // 2,
-                                 'conv3d_kernel': 10}
+                                 'conv3d_kernel': 10, 'gn_elu_kernel': 47}
 
 
 @pytest.mark.cuda
@@ -108,7 +108,7 @@ def test_conv3d_clocks_agree_bf16_device_behind(cuda_card):
     assert len(recs) == REQUESTS and seen == 10 * REQUESTS
     assert kernel_ms > 0 and abs(event_ms - kernel_ms) <= AGREE * kernel_ms
     for r in recs:
-        assert r['counters'] == {'h2d_bytes': 0, 'conv3d_kernel': 10}
+        assert r['counters'] == {'h2d_bytes': 0, 'conv3d_kernel': 10, 'gn_elu_kernel': 47}
 
 
 @pytest.mark.cuda

@@ -206,9 +206,10 @@ def card_pair_job(rank, world, full_config=None, full_batch=None, full_forward=N
     ``dtype`` on the request in ``full_forward`` and one step of that
     config on that batch, then ``steps`` timed steps -> their outcomes
     (the inverse depths as fp32), times, peak memory and the collectives
-    of one forward, and the NMS kernel's launches in this job alone."""
-    from mindtheedge_tpu_torch.ops.cuda import nms_kernel
-    nms_kernel.launches = 0
+    of one forward, and the NMS and GroupNorm + ELU kernels' launches in
+    this job alone."""
+    from mindtheedge_tpu_torch.ops.cuda import gn_elu_kernel, nms_kernel
+    nms_kernel.launches = gn_elu_kernel.launches = 0
     dev = torch.device('cuda:0')
     space = spatial.Space(world)
     out = {}
@@ -232,6 +233,7 @@ def card_pair_job(rank, world, full_config=None, full_batch=None, full_forward=N
         out['full_step'] = timed_outcome(full, batch, spatial_step(space), dev,
                                          timed_steps=steps)
     out['nms_launches'] = nms_kernel.launches
+    out['gn_elu_launches'] = gn_elu_kernel.launches
     return out
 
 
@@ -259,13 +261,14 @@ def gloo_dtype_job(rank, world, device, dtype=torch.bfloat16):
 
 def cli_job(rank, world, argv, device='cpu'):
     """``infer_edges.main(argv)`` on this rank -> its wall seconds and the
-    NMS kernel's launches in this job alone."""
+    NMS and GroupNorm + ELU kernels' launches in this job alone."""
     from mindtheedge_tpu_torch.cli import infer_edges
-    from mindtheedge_tpu_torch.ops.cuda import nms_kernel
-    nms_kernel.launches = 0
+    from mindtheedge_tpu_torch.ops.cuda import gn_elu_kernel, nms_kernel
+    nms_kernel.launches = gn_elu_kernel.launches = 0
     t0 = time.perf_counter()
     infer_edges.main(argv, device=device)
-    return {'seconds': time.perf_counter() - t0, 'nms_launches': nms_kernel.launches}
+    return {'seconds': time.perf_counter() - t0, 'nms_launches': nms_kernel.launches,
+            'gn_elu_launches': gn_elu_kernel.launches}
 
 
 def _forward_ms(net, space, request, dev, iters=3):
